@@ -8,9 +8,10 @@ them with ctypes.
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 into ``kraken_tpu_torch/_build/lib<name>.so``. A library is built at its
-first use and rebuilt when its source is newer than it; :func:`build_all`
-starts one ``nvcc`` per source, all at once. There is no fallback: without
-``nvcc`` or on a compile error the build raises.
+first use and rebuilt when any file under ``csrc`` (its source or a header)
+is newer than it; :func:`build_all` starts one ``nvcc`` per source, all at
+once. There is no fallback: without ``nvcc`` or on a compile error the
+build raises.
 """
 import ctypes
 import os
@@ -53,14 +54,19 @@ def _paths(name: str) -> tuple[Path, Path]:
     return src, BUILD_DIR / f'lib{name}.so'
 
 
-def _stale(src: Path, lib: Path) -> bool:
-    return not lib.is_file() or lib.stat().st_mtime < src.stat().st_mtime
+def _stale(lib: Path) -> bool:
+    """A library is stale when it is missing or older than any source under
+    ``csrc`` (a ``.cu`` or a header it may include)."""
+    if not lib.is_file():
+        return True
+    built = lib.stat().st_mtime
+    return any(p.stat().st_mtime > built for p in SOURCE_DIR.iterdir() if p.is_file())
 
 
 def _start(name: str) -> Optional[tuple[subprocess.Popen, Path, Path]]:
     """Starts nvcc for a stale library; returns None when it is current."""
     src, lib = _paths(name)
-    if not _stale(src, lib):
+    if not _stale(lib):
         return None
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -12,7 +12,9 @@ import torch
 from kraken_tpu.nn.layers import _lstm_scan
 from kraken_tpu.ops.lstm import lstm_pallas
 from kraken_tpu_torch.ops import build
-from kraken_tpu_torch.ops.lstm import lstm_recurrence, lstm_recurrence_reference
+from kraken_tpu_torch.ops.lstm import (MAX_SLOTS, SMEM_PER_CTA, WAVE_CLUSTERS, _cluster_smem,
+                                       _design, _units, lstm_recurrence,
+                                       lstm_recurrence_reference)
 
 B, T, H, C = 4, 16, 8, 12
 LENS = np.array([16, 10, 3, 1])
@@ -113,6 +115,68 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv('CUDA_HOME', str(tmp_path))
     with pytest.raises(RuntimeError, match='nvcc'):
         build._nvcc()
+
+
+@pytest.mark.parametrize('B', [1, 16, 64, 512])
+def test_shipped_hidden_sizes_take_the_cluster_design(B):
+    """Lbx200 (the flagship and kraken's shipped specs) and Lbx100 keep
+    w_hh in a cluster, with every cluster of the launch in one wave."""
+    for H in (100, 200):
+        kind, C, R = _design(B, 128, 2, H)
+        assert kind == 'cluster' and C == 8
+        assert -(-B // R) * 2 <= WAVE_CLUSTERS[8]
+    assert _design(64, 128, 2, 200) == ('cluster', 8, 12)
+    assert _design(512, 128, 2, 200) == ('cluster', 8, 76)
+
+
+@pytest.mark.parametrize('H', [470, 512, 1024])
+def test_large_hidden_sizes_take_the_stream_design(H):
+    assert _design(64, 128, 2, H) == ('stream',)
+
+
+def test_every_cluster_design_fits_shared_memory():
+    """227 KB per CTA on sm_90, for every H and batch that picks a cluster;
+    a cluster of 16 is taken only where 8 cannot hold w_hh."""
+    for H in range(1, 1025):
+        for B in (1, 9, 64, 512, 4096):
+            for D in (1, 2):
+                design = _design(B, 128, D, H)
+                if design[0] == 'stream':
+                    assert _cluster_smem(H, 16, 4) > SMEM_PER_CTA
+                    continue
+                _, C, R = design
+                assert SMEM_PER_CTA == 227 * 1024
+                assert _cluster_smem(H, C, R) <= SMEM_PER_CTA
+                assert R % 4 == 0 and -(-H // C) * R <= MAX_SLOTS
+                assert C == 8 or _cluster_smem(H, 8, 4) > SMEM_PER_CTA
+
+
+@pytest.mark.parametrize('H', [8, 25, 130, 200, 400, 5])
+@pytest.mark.parametrize('C', [8, 16])
+def test_cluster_partition_covers_each_unit_once(H, C):
+    owned = [u for rank in range(C) for u in _units(H, C, rank)]
+    assert sorted(owned) == list(range(H))
+    sizes = [len(_units(H, C, rank)) for rank in range(C)]
+    assert max(sizes) == -(-H // C) and max(sizes) - min(sizes) <= 1
+
+
+def test_build_rebuilds_after_a_header_changes(monkeypatch, tmp_path):
+    """A library is stale when any source under csrc, a header included,
+    is newer than it."""
+    import os
+    src = tmp_path / 'csrc'
+    src.mkdir()
+    (src / 'k.cu').write_text('#include "common.cuh"\n')
+    (src / 'common.cuh').write_text('\n')
+    lib = tmp_path / 'libk.so'
+    lib.write_bytes(b'')
+    for p, t in ((src / 'k.cu', 100), (src / 'common.cuh', 100), (lib, 200)):
+        os.utime(p, (t, t))
+    monkeypatch.setattr(build, 'SOURCE_DIR', src)
+    assert not build._stale(lib)
+    os.utime(src / 'common.cuh', (300, 300))
+    assert build._stale(lib)
+    assert build._stale(tmp_path / 'missing.so')
 
 
 @pytest.fixture
