@@ -2,7 +2,7 @@
 kraken_tpu_torch.dataset.transforms
 ~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~
 
-Image input transforms of recognition networks (reference:
+Image input transforms of recognition and segmentation networks (reference:
 kraken/lib/dataset/utils.py ImageInputTransforms), a copy of the JAX
 package's ``dataset/transforms.py`` for inference. Maps PIL images to
 normalized float32 CHW numpy arrays:
@@ -98,6 +98,11 @@ class ImageInputTransforms:
     @property
     def mode(self) -> str:
         return self._mode
+
+    @property
+    def scale(self) -> tuple[int, int]:
+        """The (height, width) the input is resized to (0 = proportional)."""
+        return self._scale
 
     def __call__(self, im: 'Image.Image') -> np.ndarray:
         im = im.convert(self._mode)

@@ -1,0 +1,333 @@
+"""
+kraken_tpu_torch.inference.segmentation
+~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~
+
+BLLA neural page segmentation inference, the counterpart of the JAX
+package's ``inference/segmentation.py``:
+
+  host: resize the page to the network height (byte-exact native Lanczos)
+        → tensor → width-padded page batch
+  device: U-Net forward (the padding-aware GroupNorm in its CUDA kernel)
+        → bilinear upsample + sigmoid (the head kernel) → Sato ridge filter
+        and threshold of the baseline channels (the ridge kernel)
+  host: baseline/region vectorization → seam-carve polygonization → region
+        association → reading order
+
+Only the float32 heatmaps and the uint8 ridge masks come back to the host.
+The JAX package's TPU-link options (quantized or bit-packed heatmaps, byte
+page uploads, device vectorization, multi-device meshes) have no
+counterpart here.
+"""
+import logging
+import uuid
+from typing import TYPE_CHECKING, Any, Optional
+
+import numpy as np
+import torch
+
+from kraken_tpu_torch.containers import BaselineLine, Region, Segmentation
+from kraken_tpu_torch.dataset import ImageInputTransforms
+from kraken_tpu_torch.lib.geometry import (line_midpoint, points_in_polygon,
+                                           scale_polygonal_lines, scale_regions)
+from kraken_tpu_torch.lib.polygonization import gradient_feature_map, polygonize_page
+from kraken_tpu_torch.lib.util import is_bitonal
+from kraken_tpu_torch.lib.vectorization import vectorize_lines, vectorize_regions
+from kraken_tpu_torch.ops.ridge import sato_ridge_threshold, upload_bank
+from kraken_tpu_torch.ops.seghead import seg_head
+
+if TYPE_CHECKING:
+    from PIL import Image
+    from kraken_tpu_torch.vgsl import VGSLModel
+
+logger = logging.getLogger(__name__)
+
+__all__ = ['prepare_segmentation', 'segmentation_pred',
+           'segmentation_pred_batch', 'vec_regions', 'vec_lines']
+
+
+def prepare_segmentation(model: 'VGSLModel', config) -> None:
+    """
+    Configures a segmentation model for inference: resolves the device
+    (raising when a CUDA device is asked for and there is none), casts the
+    parameters to the precision's type and moves them there, picks the
+    baseline channels the ridge filter runs on and, on a CUDA device,
+    uploads the ridge kernel's bank (once per device: the task model
+    prepares its models for every page).
+    """
+    from kraken_tpu_torch.inference.recognition import _PRECISION_DTYPES, resolve_device
+    device = resolve_device(config.device)
+    dtype = _PRECISION_DTYPES.get(config.precision, torch.float32)
+    model.net.to(device=device, dtype=dtype)
+    model.net.eval()
+    model._inf_config = config
+    model._device = device
+    model._m_dtype = dtype
+    cls_map = model.user_metadata.get('class_mapping') or {}
+    model._seg_fused_channels = tuple(sorted(cls_map.get('baselines', {}).values()))
+    model._seg_ridge_threshold = float(config.ridge_threshold)
+    if device.type == 'cuda' and model._seg_fused_channels:
+        upload_bank(device)
+
+
+def _seg_forward(model: 'VGSLModel', x: torch.Tensor, out_h: int, out_w: int,
+                 seq_lens: Optional[torch.Tensor] = None):
+    """
+    The device half: network → upsample + sigmoid → ridge + threshold of
+    the baseline channels (the ridge reads the full-precision sigmoid).
+    Returns (float32 heatmaps, uint8 ridge masks or None).
+    """
+    from kraken_tpu_torch.inference.recognition import _precise_fp32
+    with torch.inference_mode(), _precise_fp32(model._m_dtype):
+        logits, _ = model.net(x, seq_lens)
+        probs = seg_head(logits.contiguous(), out_h, out_w)
+        bins = None
+        if model._seg_fused_channels:
+            bins = sato_ridge_threshold(probs, model._seg_fused_channels,
+                                        model._seg_ridge_threshold)
+    return probs, bins
+
+
+def vec_regions(heatmap: np.ndarray, cls_map: dict, scale, **kwargs) -> dict[str, list[Region]]:
+    """Vectorizes all region classes of the heatmap stack into Regions."""
+    regions = {}
+    for region_type, idx in cls_map['regions'].items():
+        logger.debug(f'Extracting region polygons for class {region_type}')
+        polygons = vectorize_regions(heatmap[idx])
+        regions[region_type] = [Region(id=f'_{uuid.uuid4()}', boundary=x,
+                                       tags={'type': [{'type': region_type}]})
+                                for x in scale_regions(polygons, scale)]
+    return regions
+
+
+def vec_lines(heatmap: np.ndarray,
+              cls_map: dict[str, dict[str, int]],
+              scale,
+              bin_maps: dict[int, np.ndarray],
+              text_direction: str = 'horizontal-lr',
+              regions: list = None,
+              scal_im: np.ndarray = None,
+              suppl_obj: list = None,
+              topline: bool = False,
+              raise_on_error: bool = False,
+              **kwargs) -> list[dict[str, Any]]:
+    """
+    Vectorizes and polygonizes all baseline classes of the heatmap stack.
+
+    Args:
+        bin_maps: thresholded ridge maps per baseline channel, from the
+            ridge kernel of the forward.
+
+    Returns:
+        list of dicts with tags/baseline/boundary per line.
+    """
+    st_sep = cls_map['aux']['_start_separator']
+    end_sep = cls_map['aux']['_end_separator']
+    from kraken_tpu_torch.lib.fastfilters import maximum_filter
+    sep_filters = (maximum_filter(heatmap[st_sep], size=20),
+                   maximum_filter(heatmap[end_sep], size=20))
+    baselines = []
+    for bl_type, idx in cls_map['baselines'].items():
+        logger.debug(f'Extracting baselines for class {bl_type}')
+        baselines.extend((bl_type, bl) for bl in
+                         vectorize_lines(heatmap[(st_sep, end_sep, idx), :, :],
+                                         bin_maps[idx],
+                                         text_direction=text_direction[:-3],
+                                         sep_filters=sep_filters))
+    im_feats = gradient_feature_map(scal_im)
+    regions = regions or []
+    # batched midpoint-in-region tests: one vectorized crossing test per
+    # region over all baselines instead of lines x regions separate calls
+    mids = np.array([line_midpoint(bl) for _, bl in baselines]) \
+        if baselines else np.zeros((0, 2))
+    in_reg = np.stack([points_in_polygon(mids, reg) for reg in regions]) \
+        if regions and len(baselines) else np.zeros((0, len(baselines)), bool)
+    jobs = []
+    for idx, (bl_type, bl) in enumerate(baselines):
+        other = [b for _, b in baselines[:idx] + baselines[idx + 1:]]
+        other.extend(reg for reg_i, reg in enumerate(regions) if in_reg[reg_i, idx])
+        jobs.append((bl, other))
+    pols = polygonize_page(jobs, im_feats, topline=topline, raise_on_error=raise_on_error)
+    lines = [(bl_type, bl, pol)
+             for (bl_type, bl), pol in zip(baselines, pols) if pol is not None]
+    scaled = scale_polygonal_lines([x[1:] for x in lines], scale)
+    return [{'tags': {'type': [{'type': bl_type}]}, 'baseline': bl, 'boundary': pl}
+            for (bl_type, _, _), (bl, pl) in zip(lines, scaled)]
+
+
+def _page_resize(img: 'Image.Image', scale: tuple[int, int]) -> 'Image.Image':
+    """
+    Resizes a full page to the network input size ((height, width), a 0 dim
+    inferred proportionally) with the same Lanczos filter the training
+    transform uses: trained segmentation nets are sensitive to the
+    resampling spectrum of their inputs. The byte-exact native Lanczos is
+    used where the native library loaded; PIL's ``reducing_gap=3.0``
+    approximation only where it did not.
+    """
+    from PIL import Image as PILImage
+    w, h = img.size
+    oh, ow = scale
+    if oh == 0:
+        oh = max(1, int(h * ow / w))
+    elif ow == 0:
+        ow = max(1, int(w * oh / h))
+    if img.mode in ('L', 'RGB'):
+        from kraken_tpu_torch import native
+        out = native.resize_lanczos_native(np.asarray(img), oh, ow)
+        if out is not None:
+            return PILImage.fromarray(out, img.mode)
+    return img.resize((ow, oh), PILImage.Resampling.LANCZOS, reducing_gap=3.0)
+
+
+def _compute_segmentation_maps(model: 'VGSLModel', ims: list) -> list[dict[str, Any]]:
+    """
+    Runs the network over one or more pages and returns per-page upsampled
+    sigmoid heatmaps, ridge masks and metadata. Several pages go through
+    ONE forward: page tensors (same network height) are width-padded to a
+    common bucket and stacked on the batch dim, with their valid widths
+    reaching the padding-aware GroupNorm layers as sequence lengths.
+    """
+    from kraken_tpu_torch.inference.recognition import width_bucket
+    config = model._inf_config
+    batch, channels, height, width = model.input
+    padding = config.input_padding
+    if isinstance(padding, int):
+        padding = (padding,) * 4
+    elif len(padding) == 2:
+        padding = (padding[0], padding[0], padding[1], padding[1])
+
+    transforms = ImageInputTransforms(batch, height, width, channels, padding, valid_norm=False)
+    pages = []
+    for im in ims:
+        # scaled grayscale image (pre-tensor stage of the transform pipeline)
+        scal = im.convert(transforms.mode if transforms.mode != '1' else 'L')
+        if transforms.scale != (0, 0):
+            scal = _page_resize(scal, transforms.scale)
+        scal_im = np.array(scal.convert('L'))
+        # `scal` already is the mode-converted + resized page, so only the
+        # pad/tensor tail of the transform pipeline remains
+        tensor_im = transforms.tail(scal)
+        pages.append({'im': im, 'scal_im': scal_im, 'tensor': tensor_im,
+                      'padded_h': scal_im.shape[0] + padding[2] + padding[3],
+                      'padded_w': scal_im.shape[1] + padding[0] + padding[1]})
+
+    heights = {p['tensor'].shape[1] for p in pages}
+    if len(heights) > 1:
+        # variable-height spec: no common batch shape — run per page
+        return [r for p in pages
+                for r in _compute_segmentation_maps(model, [p['im']])]
+
+    max_w = max(p['tensor'].shape[2] for p in pages)
+    if len(pages) > 1:
+        max_w = width_bucket(max_w)
+    stack = np.zeros((len(pages), pages[0]['tensor'].shape[0],
+                      pages[0]['tensor'].shape[1], max_w), np.float32)
+    for i, p in enumerate(pages):
+        stack[i, :, :, :p['tensor'].shape[2]] = p['tensor']
+    max_padded_h = max(p['padded_h'] for p in pages)
+    x = torch.from_numpy(stack).to(device=model._device, dtype=model._m_dtype)
+    widths = [p['tensor'].shape[2] for p in pages]
+    seq_lens = None
+    if any(w != max_w for w in widths):
+        seq_lens = torch.tensor(widths, dtype=torch.int32, device=model._device)
+    heat_all, ridges_all = _seg_forward(model, x, max_padded_h, max_w, seq_lens)
+    heat_all = heat_all.cpu().numpy()
+    ridges_all = ridges_all.cpu().numpy() if ridges_all is not None else None
+
+    results = []
+    for i, p in enumerate(pages):
+        padded_w = p['padded_w']
+        bin_maps = {}
+        if ridges_all is not None:
+            ridges = ridges_all[i][:, :p['padded_h'], :padded_w]
+            ridges = ridges[:, padding[2]:ridges.shape[1] - padding[3] or None,
+                            padding[0]:ridges.shape[2] - padding[1] or None]
+            bin_maps = {c: ridges[j].astype(bool)
+                        for j, c in enumerate(model._seg_fused_channels)}
+        heat = heat_all[i][:, :p['padded_h'], :padded_w]
+        # strip padding
+        heat = heat[:, padding[2]:heat.shape[1] - padding[3] or None,
+                    padding[0]:heat.shape[2] - padding[1] or None]
+        scale = np.divide(p['im'].size, heat.shape[:0:-1])
+        results.append({'heatmap': heat,
+                        'cls_map': model.user_metadata['class_mapping'],
+                        'bounding_regions': model.user_metadata.get('bounding_regions', None),
+                        'scale': scale,
+                        'scal_im': p['scal_im'],
+                        'bin_maps': bin_maps})
+    return results
+
+
+def segmentation_pred_batch(model: 'VGSLModel', ims: list) -> list[Segmentation]:
+    """
+    Segments several pages with ONE forward (width-bucketed page batch;
+    `_compute_segmentation_maps`), then vectorizes each page on the host.
+    Heatmaps can differ from single-page prediction at the last bilinear
+    half-pixel (the shared width bucket changes the upsample grid).
+    """
+    retss = _compute_segmentation_maps(model, ims)
+    return [_vectorize_page(model, im, rets) for im, rets in zip(ims, retss)]
+
+
+def segmentation_pred(model: 'VGSLModel', im: 'Image.Image') -> Segmentation:
+    """
+    Runs full-page baseline segmentation: heatmaps → regions → lines →
+    region association → reading order.
+    """
+    if model.input[1] == 1 and model.one_channel_mode == '1' and not is_bitonal(im):
+        logger.warning(f'Binary-input model applied to a non-bitonal image (mode {im.mode}); '
+                       'expect severely degraded segmentation quality')
+    rets = _compute_segmentation_maps(model, [im])[0]
+    return _vectorize_page(model, im, rets)
+
+
+def _vectorize_page(model: 'VGSLModel', im: 'Image.Image', rets: dict) -> Segmentation:
+    """Host half of page segmentation: regions → lines → association → RO."""
+    config = model._inf_config
+    regions = vec_regions(**rets)
+
+    line_regs = []
+    suppl_obj = []
+    for cls, regs in regions.items():
+        line_regs.extend(regs)
+        if rets['bounding_regions'] is not None and cls in rets['bounding_regions']:
+            suppl_obj.extend(regs)
+    # back to network scale for polygonization
+    suppl_obj = scale_regions([x.boundary for x in suppl_obj], tuple(1 / rets['scale']))
+    line_regs = scale_regions([x.boundary for x in line_regs], tuple(1 / rets['scale']))
+
+    lines = vec_lines(**rets,
+                      regions=line_regs,
+                      text_direction=config.text_direction,
+                      suppl_obj=suppl_obj,
+                      topline=bool(model.user_metadata.get('topline', False)),
+                      raise_on_error=config.raise_on_error)
+
+    script_detection = len(rets['cls_map']['baselines']) > 1
+
+    blls = []
+    flat_regions = [reg for regs in regions.values() for reg in regs]
+    line_mids = np.array([line_midpoint(line['baseline']) for line in lines]) \
+        if lines else np.zeros((0, 2))
+    reg_hits = np.stack([points_in_polygon(line_mids, reg.boundary)
+                         for reg in flat_regions]) \
+        if flat_regions and lines else np.zeros((0, len(lines)), bool)
+    for line_i, line in enumerate(lines):
+        containing = [reg.id for reg_i, reg in enumerate(flat_regions)
+                      if reg_hits[reg_i, line_i]]
+        blls.append(BaselineLine(id=f'_{uuid.uuid4()}',
+                                 baseline=line['baseline'],
+                                 boundary=line['boundary'],
+                                 tags=line['tags'],
+                                 regions=containing))
+    if blls:
+        ro = config.baseline_ro_fn(lines=blls, regions=flat_regions,
+                                   text_direction=config.text_direction[-2:])
+        blls = [blls[idx] for idx in ro]
+
+    return Segmentation(text_direction=config.text_direction,
+                        imagename=getattr(im, 'filename', None),
+                        type='baselines',
+                        lines=blls,
+                        regions=regions,
+                        script_detection=script_detection,
+                        line_orders=[])

@@ -2,10 +2,10 @@
 kraken_tpu_torch.lib.util
 ~~~~~~~~~~~~~~~~~~~~~~~~~
 
-PIL/numpy helpers of the recognition path (reference: kraken/lib/util.py),
-copied from the JAX package's ``lib/util.py``. PIL is imported where it is
-used.
+PIL/numpy helpers (reference: kraken/lib/util.py), copied from the JAX
+package's ``lib/util.py``. PIL is imported where it is used.
 """
+from pathlib import Path
 from typing import TYPE_CHECKING, Union
 
 import numpy as np
@@ -13,7 +13,18 @@ import numpy as np
 if TYPE_CHECKING:
     from PIL import Image
 
-__all__ = ['pil2array', 'array2pil', 'is_bitonal', 'get_im_str']
+__all__ = ['pil2array', 'array2pil', 'is_bitonal', 'get_im_str',
+           'default_segmentation_model']
+
+
+def default_segmentation_model() -> Path:
+    """The packaged default baseline-segmentation weights: the port's own
+    copy of the bundled safetensors model, with a CoreML ``blla.mlmodel``
+    taking precedence when a user installs one next to the package (the
+    reference's packaged-model location, kraken/kraken.py:43)."""
+    pkg = Path(__file__).resolve().parent.parent
+    coreml = pkg / 'blla.mlmodel'
+    return coreml if coreml.exists() else pkg / 'blla.safetensors'
 
 
 def get_im_str(im: 'Image.Image') -> str:

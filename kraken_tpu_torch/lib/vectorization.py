@@ -1,0 +1,373 @@
+"""
+kraken_tpu_torch.lib.vectorization
+~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~
+
+Heatmap → vector conversion for the BLLA segmenter: baseline vectorization
+(skeletonization of the thresholded ridge map, endpoint linking,
+blob-boundary extension, orientation from separator maps) and region
+vectorization.
+
+Functional equivalent of the reference's vectorize_lines/vectorize_regions
+(kraken/lib/segmentation.py:316-450) built on scipy/OpenCV instead of
+scikit-image/shapely: Zhang-Suen thinning is implemented directly,
+minimum-cost endpoint linking runs as a sparse-graph Dijkstra over the
+skeleton plus a one-pixel halo (mirroring the reference's MCP wavefronts,
+which stop one step off the zero-cost skeleton), and polygon tracing uses
+OpenCV contours. A copy of the JAX package's
+``lib/vectorization.py`` without its host Sato ridge filter: the port's
+filter runs in the segmentation forward (``ops/ridge.py``).
+"""
+import logging
+from typing import Optional
+
+import cv2
+import numpy as np
+from scipy import sparse
+from scipy.ndimage import convolve, label as nd_label
+
+from kraken_tpu_torch.lib.fastfilters import maximum_filter
+from scipy.sparse.csgraph import dijkstra
+
+from kraken_tpu_torch.lib.geometry import douglas_peucker, polyline_dists
+
+logger = logging.getLogger(__name__)
+
+__all__ = ['skeletonize', 'vectorize_lines', 'vectorize_regions']
+
+
+_ZS_NEIGHBORS = [(-1, 0), (-1, 1), (0, 1), (1, 1), (1, 0), (1, -1), (0, -1), (-1, -1)]
+
+
+def skeletonize(im: np.ndarray) -> np.ndarray:
+    """
+    Morphological thinning to a 1-pixel-wide skeleton (Zhang-Suen). Uses the
+    native C++ implementation when available (≈20x faster on full pages),
+    with a vectorized numpy fallback.
+    """
+    from kraken_tpu_torch import native
+    result = native.skeletonize_native(im)
+    if result is not None:
+        return result
+    return _skeletonize_numpy(im)
+
+
+def _skeletonize_numpy(im: np.ndarray) -> np.ndarray:
+    img = np.pad(im.astype(np.uint8), 1)
+    changed = True
+    while changed:
+        changed = False
+        for step in (0, 1):
+            # neighbors in Zhang-Suen order P2..P9 (N, NE, E, SE, S, SW, W, NW)
+            p2 = np.roll(img, 1, 0)
+            p3 = np.roll(np.roll(img, 1, 0), -1, 1)
+            p4 = np.roll(img, -1, 1)
+            p5 = np.roll(np.roll(img, -1, 0), -1, 1)
+            p6 = np.roll(img, -1, 0)
+            p7 = np.roll(np.roll(img, -1, 0), 1, 1)
+            p8 = np.roll(img, 1, 1)
+            p9 = np.roll(np.roll(img, 1, 0), 1, 1)
+            ring = [p2, p3, p4, p5, p6, p7, p8, p9]
+            b = sum(ring)
+            ring_next = ring[1:] + ring[:1]
+            a = sum(((p == 0) & (q == 1)).astype(np.uint8) for p, q in zip(ring, ring_next))
+            if step == 0:
+                cond = (p2 * p4 * p6 == 0) & (p4 * p6 * p8 == 0)
+            else:
+                cond = (p2 * p4 * p8 == 0) & (p2 * p6 * p8 == 0)
+            remove = (img == 1) & (b >= 2) & (b <= 6) & (a == 1) & cond
+            if remove.any():
+                img[remove] = 0
+                changed = True
+    return img[1:-1, 1:-1].astype(bool)
+
+
+def _endpoints(skel: np.ndarray) -> np.ndarray:
+    """Skeleton endpoints: pixels with exactly one 8-neighbor."""
+    from kraken_tpu_torch import native
+    result = native.endpoints_native(skel)
+    if result is not None:
+        return result
+    kernel = np.array([[1, 1, 1], [1, 10, 1], [1, 1, 1]])
+    conv = convolve(skel.astype(np.int32), kernel, mode='constant')
+    return np.transpose(np.nonzero((conv == 11) & skel))
+
+
+def _filter_endpoints(extrema: np.ndarray, skel: np.ndarray,
+                      max_endpoints: int, max_per_cc: int = 10) -> np.ndarray:
+    """
+    Caps the endpoint count by dropping noisy skeleton components: first all
+    components with more than `max_per_cc` endpoints, then (if still over
+    budget) smaller components (reference: segmentation.py:353-381).
+    """
+    labels, _ = nd_label(skel, structure=np.ones((3, 3)))
+    cc = labels[extrema[:, 0], extrema[:, 1]]
+    ids, counts = np.unique(cc, return_counts=True)
+    ep_counts = dict(zip(ids.tolist(), counts.tolist()))
+    valid = {cid for cid, cnt in ep_counts.items() if cnt <= max_per_cc}
+    if sum(ep_counts[c] for c in valid) > max_endpoints:
+        sizes = np.bincount(labels.ravel())
+        budget = 0
+        kept = set()
+        for cid in sorted(valid, key=lambda c: sizes[c], reverse=True):
+            if budget + ep_counts[cid] > max_endpoints:
+                break
+            kept.add(cid)
+            budget += ep_counts[cid]
+        valid = kept
+    mask = np.isin(cc, list(valid))
+    logger.info(f'Filtered {len(extrema) - mask.sum()} endpoints from noisy skeleton components')
+    return extrema[mask]
+
+
+def _link_endpoints(skel: np.ndarray, extrema: np.ndarray) -> list[np.ndarray]:
+    """
+    Finds minimum-cost paths between endpoint pairs through the skeleton
+    (cost 0) and a one-pixel halo around it (cost 1, allowing small gaps to
+    be bridged), one path per connected endpoint pair — the same behavior as
+    the reference's MCP_Connect whose wavefronts halt one step off the
+    skeleton.
+    """
+    from kraken_tpu_torch import native
+    result = native.link_paths_native(skel, extrema)
+    if result is not None:
+        return result
+    h, w = skel.shape
+    halo = cv2.dilate(skel.astype(np.uint8), np.ones((3, 3), np.uint8)).astype(bool)
+    nodes = np.transpose(np.nonzero(halo))
+    n = len(nodes)
+    if n == 0:
+        return []
+    node_id = np.full((h, w), -1, np.int32)
+    node_id[nodes[:, 0], nodes[:, 1]] = np.arange(n)
+    # pixel entry cost: 0 on skeleton, 1 on halo; tiny epsilon keeps paths tight
+    pix_cost = np.where(skel, 1e-4, 1.0).astype(np.float32)
+
+    rows = []
+    cols = []
+    data = []
+    for dy, dx in _ZS_NEIGHBORS:
+        ys = nodes[:, 0] + dy
+        xs = nodes[:, 1] + dx
+        ok = (ys >= 0) & (ys < h) & (xs >= 0) & (xs < w)
+        tgt = np.full(n, -1, np.int32)
+        tgt[ok] = node_id[ys[ok], xs[ok]]
+        src_ok = np.nonzero(tgt >= 0)[0]
+        rows.append(src_ok)
+        cols.append(tgt[src_ok])
+        data.append(pix_cost[ys[src_ok] + 0, xs[src_ok] + 0])
+    graph = sparse.csr_matrix((np.concatenate(data),
+                               (np.concatenate(rows), np.concatenate(cols))),
+                              shape=(n, n))
+    ep_ids = node_id[extrema[:, 0], extrema[:, 1]]
+    dist, predecessors = dijkstra(graph, directed=False, indices=ep_ids,
+                                  return_predecessors=True, limit=3.0)
+
+    paths = []
+    seen_pairs = set()
+    for i in range(len(ep_ids)):
+        for j in range(i + 1, len(ep_ids)):
+            if not np.isfinite(dist[i, ep_ids[j]]):
+                continue
+            key = (min(ep_ids[i], ep_ids[j]), max(ep_ids[i], ep_ids[j]))
+            if key in seen_pairs:
+                continue
+            seen_pairs.add(key)
+            # reconstruct path from j back to i (collect flat indices and
+            # gather once — per-pixel ndarray appends dominated this loop)
+            idxs = []
+            pred_i = predecessors[i]
+            cur = ep_ids[j]
+            target = ep_ids[i]
+            while cur != -9999 and cur >= 0:
+                idxs.append(cur)
+                if cur == target:
+                    break
+                cur = pred_i[cur]
+            else:
+                continue
+            paths.append(nodes[idxs[::-1]])
+    return paths
+
+
+def _prune_overlapping_paths(paths: list[np.ndarray], shape: tuple[int, int],
+                             coverage_threshold: float = 0.8,
+                             tolerance: int = 2) -> list[np.ndarray]:
+    """
+    Drops endpoint-pair paths that mostly retrace an already-kept path.
+
+    A forked skeleton (a baseline with a short spur, common with noisy
+    heatmaps) has 3+ endpoints and therefore produces one path per endpoint
+    pair, all sharing the stem — near-duplicate baselines lying on top of
+    each other. Downstream these duplicates act as hard ROI boundaries for
+    one another, collapsing the polygonizer's region of interest to nothing
+    ("Degenerate bounding polygon") and double-recognizing the same text.
+    The reference inherits the same duplicates from its MCP wavefront pairs
+    (kraken/lib/segmentation.py:293-318) and merely drops the lines that
+    fail later; pruning them here fixes the cause.
+
+    Greedy longest-first cover: a path whose pixels are ≥ coverage_threshold
+    covered (within `tolerance` px) by longer kept paths is dropped.
+    """
+    if len(paths) < 2:
+        return paths
+    order = sorted(range(len(paths)), key=lambda i: -len(paths[i]))
+    covered = np.zeros(shape, np.uint8)
+    thickness = 2 * tolerance + 1
+    keep = []
+    for i in order:
+        path = paths[i]
+        frac = covered[path[:, 0], path[:, 1]].mean() if len(path) else 1.0
+        if frac >= coverage_threshold:
+            continue
+        keep.append(i)
+        xy = path[:, ::-1].astype(np.int32).reshape(-1, 1, 2)
+        cv2.polylines(covered, [xy], False, 1, thickness)
+    keep.sort()
+    return [paths[i] for i in keep]
+
+
+def _trace_boundary(mask: np.ndarray) -> Optional[np.ndarray]:
+    """Outer boundary of a binary blob as (row, col) coordinates."""
+    contours, _ = cv2.findContours(mask.astype(np.uint8), cv2.RETR_EXTERNAL,
+                                   cv2.CHAIN_APPROX_NONE)
+    if not contours:
+        return None
+    contour = max(contours, key=cv2.contourArea).squeeze(1)
+    if contour.ndim != 2 or len(contour) < 3:
+        return None
+    return contour[:, ::-1]  # (x, y) -> (row, col)
+
+
+def _extend_to_blob_boundary(lines: list, bin_bl_map: np.ndarray) -> list:
+    """
+    Extends baseline ends outward to the boundary of their containing
+    baseline blob (reference: _extend_boundaries, segmentation.py:250-290).
+    Operates in (row, col) space.
+    """
+    labels, n_labels = nd_label(bin_bl_map, structure=np.ones((3, 3)))
+    from scipy.ndimage import find_objects
+    from kraken_tpu_torch.lib.geometry import point_in_polygon, ray_polygon_intersection, nearest_point_on_polygon
+
+    # per-label bounding boxes: blob masks/traces below operate on the
+    # blob's slice instead of the full page (a full-page `labels == lab`
+    # comparison per endpoint dominated this function)
+    slices = find_objects(labels, max_label=n_labels)
+    boundary_cache: dict[int, np.ndarray] = {}
+
+    def _blob_boundary(pt):
+        lab = labels[min(max(int(pt[0]), 0), labels.shape[0] - 1),
+                     min(max(int(pt[1]), 0), labels.shape[1] - 1)]
+        if lab == 0:
+            return None
+        if lab not in boundary_cache:
+            sl = slices[lab - 1]
+            mask = labels[sl] == lab
+            if mask.sum() < 6:
+                boundary_cache[lab] = None
+            else:
+                b = _trace_boundary(mask)
+                if b is not None:
+                    b = b + np.array([sl[0].start, sl[1].start])
+                    boundary_cache[lab] = douglas_peucker(b, 0.01)
+                else:
+                    boundary_cache[lab] = None
+        return boundary_cache[lab]
+
+    for bl in lines:
+        if len(bl) < 2:
+            continue
+        for idx, ref in ((0, 1), (-1, -2)):
+            boundary = _blob_boundary(bl[idx])
+            if boundary is None:
+                continue
+            pt = np.asarray(bl[idx], float)
+            if point_in_polygon(pt, boundary):
+                direction = pt - np.asarray(bl[ref], float)
+                if np.linalg.norm(direction) < 1e-9:
+                    continue
+                hit = ray_polygon_intersection(pt, direction, boundary)
+                if hit is None:
+                    hit = nearest_point_on_polygon(pt, boundary)
+                bl[idx] = np.asarray(hit, int).tolist()
+    return lines
+
+
+def vectorize_lines(im: np.ndarray, bin_map: np.ndarray, min_length: int = 5,
+                    text_direction: str = 'horizontal',
+                    max_endpoints: int = 400,
+                    sep_filters: Optional[tuple] = None) -> list:
+    """
+    Vectorizes baselines from a (3, H, W) probability stack of
+    (start_separator, end_separator, baseline) maps.
+
+    Args:
+        bin_map: the thresholded Sato ridge map (H, W) of the baseline map,
+            from :func:`kraken_tpu_torch.ops.ridge.sato_ridge_threshold`
+            (the segmentation forward runs it right after the network).
+        sep_filters: precomputed (maximum_filter(st_map, 20),
+            maximum_filter(end_map, 20)) pair — the separator channels are
+            shared across baseline classes, so multi-class callers compute
+            them once.
+
+    Returns:
+        A list of [(x, y), ...] baseline polylines, oriented by the
+        separator maps (falling back to the principal text direction).
+    """
+    if text_direction not in ('horizontal', 'vertical'):
+        raise ValueError(f'Invalid text direction "{text_direction}"')
+    st_map, end_map = im[0], im[1]
+    bin_bl_map = np.asarray(bin_map, bool)
+    skel = skeletonize(bin_bl_map)
+    extrema = _endpoints(skel)
+    if len(extrema) > max_endpoints:
+        extrema = _filter_endpoints(extrema, skel, max_endpoints)
+    if len(extrema) < 2:
+        return []
+    paths = _link_endpoints(skel, extrema)
+    paths = _prune_overlapping_paths(paths, skel.shape)
+    lines = [douglas_peucker(path, 3).astype(int).tolist() for path in paths]
+    lines = _extend_to_blob_boundary(lines, bin_bl_map)
+
+    if sep_filters is not None:
+        f_st, f_end = sep_filters
+    else:
+        f_st = maximum_filter(st_map, size=20)
+        f_end = maximum_filter(end_map, size=20)
+    oriented = []
+    for bl in lines:
+        l_end = tuple(np.clip(bl[0], 0, np.array(f_st.shape) - 1))
+        r_end = tuple(np.clip(bl[-1], 0, np.array(f_st.shape) - 1))
+        if f_st[l_end] - f_end[l_end] > 0.2 and f_st[r_end] - f_end[r_end] < -0.2:
+            pass
+        elif f_st[l_end] - f_end[l_end] < -0.2 and f_st[r_end] - f_end[r_end] > 0.2:
+            bl = bl[::-1]
+        elif text_direction == 'horizontal':
+            if bl[0][1] > bl[-1][1]:
+                bl = bl[::-1]
+        elif bl[0][0] > bl[-1][0]:
+            bl = bl[::-1]
+        if polyline_dists(np.array(bl))[-1] >= min_length:
+            # (row, col) -> (x, y)
+            oriented.append([pt[::-1] for pt in bl])
+    return oriented
+
+
+def vectorize_regions(im: np.ndarray, threshold: float = 0.5) -> list:
+    """
+    Vectorizes region polygons from a (H, W) probability map: threshold,
+    trace blob boundaries, simplify.
+
+    Returns:
+        A list of [(x, y), ...] region polygons.
+    """
+    mask = (im > threshold).astype(np.uint8)
+    contours, _ = cv2.findContours(mask, cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_NONE)
+    boundaries = []
+    for contour in contours:
+        contour = contour.squeeze(1)
+        if contour.ndim != 2 or len(contour) < 3:
+            continue
+        simplified = douglas_peucker(contour.astype(float), 10)
+        if len(simplified) > 2:
+            boundaries.append(np.clip(simplified, 0, None).astype(np.uint32)[:, :2].tolist())
+    return [[list(map(int, pt)) for pt in b] for b in boundaries]

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kraken_tpu_torch.ops.groupnorm import group_norm
 from kraken_tpu_torch.ops.lstm import lstm_recurrence
 
 __all__ = ['ActConv2D', 'Addition', 'Dropout', 'GroupNorm', 'Identity',
@@ -176,8 +177,9 @@ class GroupNorm(Layer):
     """
     Group normalization, padding-aware: with sequence lengths the
     statistics cover the valid width only, and the pad columns are zeroed
-    both before and after the affine (so the next convolution reads zero
-    padding).
+    (so the next convolution reads zero padding). Runs in
+    :func:`kraken_tpu_torch.ops.groupnorm.group_norm`: the CUDA kernel on
+    the card, its plain version on the CPU.
     """
 
     def __init__(self, in_channels: int, num_groups: int, eps: float = 1e-5):
@@ -188,33 +190,8 @@ class GroupNorm(Layer):
         self.layer = _Params(weight=torch.ones(in_channels), bias=torch.zeros(in_channels))
 
     def forward(self, x, seq_len=None, output_shape=None):
-        t = x.dtype
-        x32 = x.to(torch.float32)
-        N, C, H, W = x32.shape
-        G = self.num_groups
-        grouped = x32.reshape(N, G, C // G, H, W)
-        if seq_len is None:
-            mean = grouped.mean(dim=(2, 3, 4), keepdim=True)
-            var = grouped.var(dim=(2, 3, 4), keepdim=True, correction=0)
-            normed = (grouped - mean) * torch.rsqrt(var + self.eps)
-        else:
-            lens = torch.clamp(seq_len, 1, W)
-            mask = (torch.arange(W, device=x.device)[None, :] < lens[:, None]).to(torch.float32)
-            m = mask[:, None, None, None, :]
-            count = ((C // G) * H * lens.to(torch.float32))[:, None, None, None, None]
-            mean = (grouped * m).sum(dim=(2, 3, 4), keepdim=True) / count
-            var = (((grouped - mean) ** 2) * m).sum(dim=(2, 3, 4), keepdim=True) / count
-            normed = (grouped - mean) * torch.rsqrt(var + self.eps)
-            normed = normed * m
-        normed = normed.reshape(N, C, H, W)
-        weight = self.layer.weight.to(torch.float32)
-        bias = self.layer.bias.to(torch.float32)
-        y = normed * weight[None, :, None, None] + bias[None, :, None, None]
-        if seq_len is not None:
-            valid = torch.arange(W, device=x.device)[None, None, None, :] \
-                < torch.clamp(seq_len, 1, W)[:, None, None, None]
-            y = y * valid
-        return y.to(t), seq_len
+        y = group_norm(x, self.layer.weight, self.layer.bias, self.num_groups, self.eps, seq_len)
+        return y, seq_len
 
 
 _ACTIVATIONS = {

@@ -22,7 +22,12 @@ import threading
 from pathlib import Path
 from typing import Optional
 
-__all__ = ['load_library', 'build_all', 'SOURCE_DIR', 'BUILD_DIR']
+import torch
+
+__all__ = ['load_library', 'build_all', 'SOURCE_DIR', 'BUILD_DIR', 'DTYPE_CODES']
+
+# the element types the kernels' C interfaces take, by their code there
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 SOURCE_DIR = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'

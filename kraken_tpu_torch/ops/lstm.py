@@ -38,9 +38,9 @@ import functools
 
 import torch
 
-__all__ = ['lstm_recurrence', 'lstm_recurrence_reference']
+from kraken_tpu_torch.ops.build import DTYPE_CODES
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+__all__ = ['lstm_recurrence', 'lstm_recurrence_reference']
 
 
 def _shapes(gates_x: torch.Tensor, w_hh: torch.Tensor,
@@ -192,8 +192,8 @@ def _launch(gates_x: torch.Tensor, w_hh: torch.Tensor, mask: torch.Tensor,
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = fn(gates_x.data_ptr(), w_hh.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                 B, T, D, H, C, R, int(bool(reverse)), _DTYPES[gates_x.dtype],
-                 _DTYPES[w_hh.dtype], dev, stream)
+                 B, T, D, H, C, R, int(bool(reverse)), DTYPE_CODES[gates_x.dtype],
+                 DTYPE_CODES[w_hh.dtype], dev, stream)
     else:
         # the stream design reads w_hh transposed and in fp32
         w_hh_t = w_hh.to(torch.float32).transpose(1, 2).contiguous()
@@ -201,7 +201,7 @@ def _launch(gates_x: torch.Tensor, w_hh: torch.Tensor, mask: torch.Tensor,
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = fn(gates_x.data_ptr(), w_hh_t.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                 B, T, D, H, int(bool(reverse)), _DTYPES[gates_x.dtype], dev, stream)
+                 B, T, D, H, int(bool(reverse)), DTYPE_CODES[gates_x.dtype], dev, stream)
     if err != 0:
         raise RuntimeError(f'lstm_recurrence {design[0]} kernel launch failed: cudaError {err}')
     lstm_recurrence.launches += 1
@@ -233,7 +233,7 @@ def lstm_recurrence(gates_x: torch.Tensor, w_hh: torch.Tensor,
     if gates_x.device.type != 'cuda':
         raise ValueError(f'lstm_recurrence runs on cpu or cuda tensors, not {gates_x.device}')
     B, T, D, H = _shapes(gates_x, w_hh, mask)
-    if gates_x.dtype not in _DTYPES or w_hh.dtype not in _DTYPES:
+    if gates_x.dtype not in DTYPE_CODES or w_hh.dtype not in DTYPE_CODES:
         raise TypeError(f'gates_x and w_hh must be float32, bfloat16 or float16, '
                         f'not {gates_x.dtype} and {w_hh.dtype}')
     if mask.dtype != torch.bool:

@@ -1,3 +1,4 @@
 from kraken_tpu_torch.tasks.recognition import RecognitionTaskModel
+from kraken_tpu_torch.tasks.segmentation import SegmentationTaskModel
 
-__all__ = ['RecognitionTaskModel']
+__all__ = ['RecognitionTaskModel', 'SegmentationTaskModel']

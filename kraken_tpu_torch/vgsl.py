@@ -474,23 +474,37 @@ class VGSLModel:
         """
         Configures the model for inference with `config`: device placement
         and precision cast (see
-        :func:`kraken_tpu_torch.inference.recognition.prepare_recognition`).
+        :func:`kraken_tpu_torch.inference.recognition.prepare_recognition`
+        and :func:`kraken_tpu_torch.inference.segmentation.prepare_segmentation`).
         """
-        from kraken_tpu_torch.configs import RecognitionInferenceConfig
-        if 'recognition' not in self.model_type:
-            raise ValueError(f'{self} is a {self.model_type} model; only recognition '
-                             'models have an inference path in kraken_tpu_torch yet.')
-        if not isinstance(config, RecognitionInferenceConfig):
-            raise ValueError(f'{self} is a recognition model but received '
-                             f'incompatible {type(config).__name__}.')
-        from kraken_tpu_torch.inference.recognition import prepare_recognition
-        prepare_recognition(self, config)
+        from kraken_tpu_torch.configs import (RecognitionInferenceConfig,
+                                              SegmentationInferenceConfig)
+        for task, cfg_type in (('recognition', RecognitionInferenceConfig),
+                               ('segmentation', SegmentationInferenceConfig)):
+            if isinstance(config, cfg_type) and task not in self.model_type:
+                raise ValueError(f'{self} is a {self.model_type} model but received '
+                                 f'incompatible {type(config).__name__}.')
+        if 'recognition' in self.model_type:
+            from kraken_tpu_torch.inference.recognition import prepare_recognition
+            prepare_recognition(self, config)
+        elif 'segmentation' in self.model_type:
+            from kraken_tpu_torch.inference.segmentation import prepare_segmentation
+            prepare_segmentation(self, config)
+        else:
+            raise ValueError(f'Model type {self.model_type} has no inference path')
 
     def predict(self, *args, **kwargs):
-        """Runs recognition: takes (im, segmentation) and yields OCR records."""
+        """
+        Runs inference: recognition models take (im, segmentation) and yield
+        OCR records; segmentation models take (im) and return a
+        Segmentation.
+        """
         if 'recognition' in self.model_type:
             from kraken_tpu_torch.inference.recognition import recognition_pred
             return recognition_pred(self, *args, **kwargs)
+        if 'segmentation' in self.model_type:
+            from kraken_tpu_torch.inference.segmentation import segmentation_pred
+            return segmentation_pred(self, *args, **kwargs)
         raise ValueError(f'Model type {self.model_type} has no prediction mode')
 
     # --------------------------------------------------------- state dicts

@@ -176,3 +176,116 @@ def test_stream_design_runs_hidden_sizes_a_cluster_holds(cuda_device):
     cluster = lstm_recurrence(g, w, m, True)
     stream = _launch(g, w, m, True, ('stream',))
     assert (cluster - stream).abs().max().item() <= 1e-5
+
+
+# ---------------------------------------------------------------- segmentation
+def _within(out: torch.Tensor, ref: torch.Tensor, dtype) -> bool:
+    """fp32: within 1e-5. bf16 outputs: within 2e-2 of values up to 1 and
+    2e-2 relative above (one bf16 ulp is 2^-8 of the value's binade)."""
+    err = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        return err.max().item() <= 1e-5
+    return bool((err <= 2e-2 * ref.float().abs().clamp(min=1)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape, groups, lens', [
+    ((1, 32, 256, 177), 8, None),        # the shipped model's first Gn
+    ((1, 96, 128, 89), 16, None),
+    ((3, 16, 37, 61), 4, [61, 30, 1]),   # ragged lengths, 1 and full
+    ((2, 96, 20, 33), 16, [5, 40]),      # a length beyond W is clamped
+])
+def test_group_norm_kernel_matches_plain(cuda_device, shape, groups, lens, dtype):
+    from kraken_tpu_torch.ops.groupnorm import group_norm, group_norm_reference
+    rng = np.random.RandomState(sum(shape))
+    x = torch.from_numpy(np.maximum(rng.randn(*shape), 0).astype(np.float32)).to(cuda_device, dtype)
+    w = torch.from_numpy((1 + 0.1 * rng.randn(shape[1])).astype(np.float32)).to(cuda_device, dtype)
+    b = torch.from_numpy((0.1 * rng.randn(shape[1])).astype(np.float32)).to(cuda_device, dtype)
+    seq = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = group_norm.launches
+    y = group_norm(x, w, b, groups, 1e-5, seq)
+    torch.cuda.synchronize()
+    assert group_norm.launches == before + 2  # statistics, then merge + normalise
+    ref = group_norm_reference(x, w, b, groups, 1e-5, seq)
+    assert y.dtype == dtype and y.shape == x.shape
+    assert _within(y, ref, dtype)
+    if lens is not None:
+        for n, L in enumerate(lens):
+            assert not y[n, :, :, min(L, shape[3]):].any()
+    # the same call again gives the same bits (no float atomics)
+    assert torch.equal(group_norm(x, w, b, groups, 1e-5, seq), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape, out', [
+    ((1, 10, 128, 89), (512, 354)),      # the shipped model's head
+    ((2, 3, 13, 9), (50, 31)),           # non-integer ratios
+    ((1, 2, 7, 300), (7, 301)),
+])
+def test_seg_head_kernel_matches_plain(cuda_device, shape, out, dtype):
+    from kraken_tpu_torch.ops.seghead import seg_head, seg_head_reference
+    x = torch.from_numpy(np.random.RandomState(shape[2]).randn(*shape).astype(np.float32) * 4)
+    x = x.to(cuda_device, dtype)
+    before = seg_head.launches
+    y = seg_head(x, *out)
+    torch.cuda.synchronize()
+    assert seg_head.launches == before + 1
+    ref = seg_head_reference(x, *out)
+    # the output is fp32 from the same (upcast) inputs whatever the logits' type
+    assert y.dtype == torch.float32 and (y - ref).abs().max().item() <= 1e-5
+    with pytest.raises(ValueError, match='only upsamples'):
+        seg_head(x, shape[2] - 1, out[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('N, K, H, W, channels', [
+    (1, 10, 512, 354, (2, 3, 4, 5)),     # the shipped model's baseline channels
+    (2, 3, 45, 77, (0, 2)),              # tiles cut by both edges
+])
+def test_ridge_kernel_matches_plain(cuda_device, N, K, H, W, channels):
+    from kraken_tpu_torch.ops.ridge import sato_ridge_reference, sato_ridge_threshold
+    rng = np.random.RandomState(H)
+    yy = np.arange(H)[:, None]
+    maps = np.zeros((N, K, H, W), np.float32)
+    for n in range(N):
+        for k in range(K):
+            for _ in range(6):
+                y0, slope = rng.uniform(0, H), rng.uniform(-0.1, 0.1)
+                maps[n, k] += np.exp(-0.5 * ((yy - y0 - slope * np.arange(W)[None]) / 3.0) ** 2)
+    probs = torch.from_numpy(np.clip(maps + 0.05 * rng.rand(*maps.shape), 0, 1)
+                             .astype(np.float32)).to(cuda_device)
+    response = torch.empty((N, len(channels), H, W), device=cuda_device)
+    before = sato_ridge_threshold.launches
+    mask = sato_ridge_threshold(probs, channels, 0.17, response)
+    torch.cuda.synchronize()
+    assert sato_ridge_threshold.launches == before + 1
+    ref = sato_ridge_reference(probs[:, list(channels)].reshape(-1, H, W)).reshape(response.shape)
+    assert (response - ref).abs().max().item() <= 1e-5
+    differ = mask.bool() != (ref > 0.17)
+    assert ((ref[differ] - 0.17).abs() <= 1e-5).all()
+    assert bool((ref > 0.17).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('precision', ['32-true', 'bf16-true'])
+def test_segmentation_main_path_launches(cuda_device, precision):
+    """The shipped model on the fixture page: 5 GroupNorm layers (two
+    launches each), 1 head and 1 ridge launch per page, through
+    SegmentationTaskModel on the card."""
+    from PIL import Image
+    from kraken_tpu_torch import native
+    from kraken_tpu_torch.configs import SegmentationInferenceConfig
+    from kraken_tpu_torch.ops.groupnorm import group_norm
+    from kraken_tpu_torch.ops.ridge import sato_ridge_threshold
+    from kraken_tpu_torch.ops.seghead import seg_head
+    from kraken_tpu_torch.tasks import SegmentationTaskModel
+    task = SegmentationTaskModel.load_model()
+    im = Image.open(RESOURCES / '170025120000003,0074.jpg')
+    before = (group_norm.launches, seg_head.launches, sato_ridge_threshold.launches)
+    seg = task.predict(im, SegmentationInferenceConfig(precision=precision))
+    after = (group_norm.launches, seg_head.launches, sato_ridge_threshold.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (10, 1, 1)
+    assert native.available()
+    assert len(seg.lines) > 30 and all(len(line.boundary) >= 3 for line in seg.lines)

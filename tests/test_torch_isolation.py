@@ -40,6 +40,14 @@ seg = Segmentation(type='baselines', imagename=res + '/bw.png', text_direction='
                    lines=[BaselineLine(id='l0', baseline=[[0, 10], [2543, 10]],
                                        boundary=[[0, 0], [2543, 0], [2543, 155], [0, 155]])])
 assert len(list(vmodel.predict(Image.open(res + '/000236.png'), seg))) == 1
+from kraken_tpu_torch import blla, native
+from kraken_tpu_torch.configs import SegmentationInferenceConfig
+from kraken_tpu_torch.tasks import SegmentationTaskModel
+page = Image.open(res + '/170025120000003,0074.jpg').resize((354, 512))
+assert len(SegmentationTaskModel.load_model().predict(
+    page, SegmentationInferenceConfig(device='cpu')).lines) > 10
+assert blla.segment(page, device='cpu').type == 'baselines'
+assert native.available()
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'kraken_tpu'))
 print('FORBIDDEN', bad)
@@ -47,8 +55,10 @@ print('FORBIDDEN', bad)
 
 
 def test_port_runs_without_jax_or_kraken_tpu(resources):
-    """A fresh interpreter runs the port's forward and engine on the CPU and
-    never imports JAX or kraken_tpu (the test process itself has JAX)."""
+    """A fresh interpreter runs the port's recognition forward and engine
+    and its segmentation (the task model and the legacy ``blla.segment``)
+    on the CPU and never imports JAX or kraken_tpu (the test process itself
+    has JAX)."""
     out = subprocess.run([sys.executable, '-c', _CHILD, str(resources)], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]

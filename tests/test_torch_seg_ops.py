@@ -1,0 +1,139 @@
+"""
+The plain versions of the port's three segmentation kernels against the
+JAX functions they port, on the same numpy-seeded inputs (fp32):
+
+- the padding-aware GroupNorm against ``GroupNorm.apply`` (atol 1e-6 with
+  rtol 1e-6: the outputs reach ~7, where one fp32 ulp is 4.8e-7, and the
+  two sides take the statistics in fp32 in different orders; JAX sums in
+  sequence, so the groups stay at a few hundred elements);
+- the upsample+sigmoid head against ``jax.image.resize`` + ``sigmoid``
+  (atol 1e-6), at integer and non-integer ratios;
+- the Sato ridge filter against ``ops/ridge._sato_core_batch`` (atol 1e-5,
+  the tolerance of the JAX package's own ridge tests), with masks equal
+  except at pixels within 1e-5 of the threshold.
+
+The CUDA kernels themselves run in tests/test_torch_cuda.py (GPU only).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kraken_tpu.nn.layers import GroupNorm as JaxGroupNorm
+from kraken_tpu.ops import ridge as jax_ridge
+from kraken_tpu_torch.ops import groupnorm, ridge, seghead
+
+
+def _groupnorm_inputs(shape, seed):
+    rng = np.random.RandomState(seed)
+    # post-ReLU-like activations: mean about as large as the spread
+    x = np.maximum(rng.randn(*shape), 0).astype(np.float32)
+    w = (1 + 0.1 * rng.randn(shape[1])).astype(np.float32)
+    b = (0.1 * rng.randn(shape[1])).astype(np.float32)
+    return x, w, b
+
+
+@pytest.mark.parametrize('shape, groups, lens', [
+    ((1, 16, 6, 17), 8, None),
+    ((2, 8, 5, 31), 4, None),
+    ((3, 16, 5, 31), 16, [31, 12, 1]),
+    ((2, 12, 4, 40), 6, [7, 40]),
+    ((2, 8, 4, 6), 2, [0, 9]),  # lengths outside [1, W] are clamped
+])
+def test_groupnorm_plain_matches_jax(shape, groups, lens):
+    x, w, b = _groupnorm_inputs(shape, sum(shape))
+    layer = JaxGroupNorm(shape[1], groups)
+    params = {'layer.weight': jnp.asarray(w), 'layer.bias': jnp.asarray(b)}
+    seq = None if lens is None else np.asarray(lens, np.int32)
+    want, _ = layer.apply(params, jnp.asarray(x), None if seq is None else jnp.asarray(seq))
+    got = groupnorm.group_norm_reference(torch.from_numpy(x), torch.from_numpy(w),
+                                         torch.from_numpy(b), groups, 1e-5,
+                                         None if seq is None else torch.from_numpy(seq))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=1e-6)
+    if seq is not None:
+        for n, L in enumerate(np.clip(seq, 1, shape[3])):
+            assert not got[n, :, :, L:].any()
+    # the wrapper takes the plain version for a CPU tensor
+    again = groupnorm.group_norm(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+                                 groups, 1e-5, None if seq is None else torch.from_numpy(seq))
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize('groups, rows', [(8, 1024), (32, 1800), (16, 512), (1, 3), (2, 16)])
+def test_groupnorm_blocks_cover_every_row(groups, rows):
+    """The split the kernel is launched with: no empty block, every row."""
+    S = groupnorm.blocks_per_group(groups, rows)
+    per = -(-rows // S)
+    assert S >= 1 and (S - 1) * per < rows <= S * per
+
+
+@pytest.mark.parametrize('shape, out', [
+    ((1, 10, 16, 11), (64, 44)),     # integer ratio 4
+    ((2, 3, 13, 9), (50, 31)),       # non-integer ratios
+    ((1, 2, 7, 7), (7, 20)),         # one axis unchanged
+])
+def test_seg_head_plain_matches_jax(shape, out):
+    x = (np.random.RandomState(shape[2]).randn(*shape) * 3).astype(np.float32)
+    want = jax.nn.sigmoid(jax.image.resize(jnp.asarray(x), shape[:2] + out, method='bilinear'))
+    got = seghead.seg_head_reference(torch.from_numpy(x), *out)
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape[:2] + out
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    assert torch.equal(seghead.seg_head(torch.from_numpy(x), *out), got)
+
+
+@pytest.mark.parametrize('out', [(8, 40), (20, 5)])
+def test_seg_head_refuses_downsampling(out):
+    with pytest.raises(ValueError, match='only upsamples'):
+        seghead.seg_head(torch.zeros(1, 2, 10, 10), *out)
+
+
+def test_ridge_bank_matches_jax():
+    rows, cols, radius = jax_ridge._sato_kernel_bank(ridge.SIGMAS)
+    p_rows, p_cols, p_radius = ridge._sato_kernel_bank(ridge.SIGMAS)
+    assert radius == p_radius == 36
+    np.testing.assert_array_equal(rows, p_rows)
+    np.testing.assert_array_equal(cols, p_cols)
+    # the kernel's constant bank: the non-zero taps of g0, g1, g2 per sigma
+    bank = ridge.sato_kernel_bank()
+    assert bank.dtype == np.float32 and bank.shape == (615,)
+    np.testing.assert_array_equal(bank, np.concatenate(
+        [jax_ridge._gauss_deriv_kernel(s, o) for s in ridge.SIGMAS for o in (0, 1, 2)]))
+
+
+def _ridge_maps(n, h, w, seed):
+    """Smooth line-like maps in [0, 1] with noise, like baseline heatmaps."""
+    rng = np.random.RandomState(seed)
+    maps = np.zeros((n, h, w), np.float32)
+    yy = np.arange(h)[:, None]
+    for i in range(n):
+        for _ in range(4):
+            y0, slope = rng.uniform(0, h), rng.uniform(-0.1, 0.1)
+            maps[i] += np.exp(-0.5 * ((yy - y0 - slope * np.arange(w)[None]) / 2.0) ** 2)
+    maps += 0.05 * rng.rand(n, h, w).astype(np.float32)
+    return np.clip(maps, 0, 1).astype(np.float32)
+
+
+@pytest.mark.parametrize('n, h, w', [(2, 64, 90), (1, 37, 150)])
+def test_ridge_plain_matches_jax(n, h, w):
+    maps = _ridge_maps(n, h, w, h + w)
+    want = np.asarray(jax_ridge._sato_core_batch(jnp.asarray(maps)))
+    got = ridge.sato_ridge_reference(torch.from_numpy(maps)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    # the thresholded wrapper on a (N, K, H, W) stack and a channel subset
+    thr = 0.17
+    stack = np.stack([np.zeros_like(maps), maps], 1)
+    response = torch.empty((n, 1, h, w))
+    mask = ridge.sato_ridge_threshold(torch.from_numpy(stack), (1,), thr, response)
+    assert mask.dtype == torch.uint8 and tuple(mask.shape) == (n, 1, h, w)
+    np.testing.assert_allclose(response[:, 0].numpy(), got, atol=1e-6)
+    differ = mask[:, 0].numpy().astype(bool) != (want > thr)
+    assert (np.abs(want[differ] - thr) <= 1e-5).all()
+    assert (want > thr).any() and not (want > thr).all()
+
+
+def test_ridge_wrapper_checks_channels():
+    with pytest.raises(ValueError, match='channels'):
+        ridge.sato_ridge_threshold(torch.zeros(1, 3, 8, 8), (3,), 0.17)
+    with pytest.raises(ValueError, match='response'):
+        ridge.sato_ridge_threshold(torch.zeros(1, 3, 8, 8), (0,), 0.17, torch.zeros(1, 2, 8, 8))
