@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ['load_library', 'build_all', 'SOURCE_DIR', 'BUILD_DIR', 'DTYPE_CODES']
+__all__ = ['load_library', 'build_all', 'raw_stream', 'SOURCE_DIR', 'BUILD_DIR', 'DTYPE_CODES']
 
 # the element types the kernels' C interfaces take, by their code there
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -123,3 +123,10 @@ def load_library(name: str) -> ctypes.CDLL:
                 _finish(job)
             _LIBS[name] = ctypes.CDLL(str(_paths(name)[1]))
         return _LIBS[name]
+
+
+def raw_stream(device_index: int) -> int:
+    """The handle of the current CUDA stream of a device, as an int for a
+    kernel's C interface: ``torch.cuda.current_stream(i).cuda_stream``
+    without building a Stream object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(device_index)

@@ -16,6 +16,14 @@ On a CUDA tensor it launches the hand-written kernel of
 ``csrc/groupnorm.cu`` (built by :mod:`kraken_tpu_torch.ops.build`) or
 raises; on a CPU tensor it runs :func:`group_norm_reference`, the plain
 PyTorch version of the same function.
+
+The source holds two designs, picked per call from the shapes alone by
+:func:`_design`: ``cluster`` (one launch) holds each (sample, group) in the
+shared memory of a thread-block cluster, so x is read once (every layer of
+the shipped segmentation model); ``stream`` (two launches: the partial
+statistics, then their merge and the normalisation) reads x twice, for
+groups a cluster cannot hold. A refused launch raises; neither design stands
+in for the other.
 """
 import ctypes
 import functools
@@ -23,9 +31,9 @@ from typing import Optional
 
 import torch
 
-from kraken_tpu_torch.ops.build import DTYPE_CODES
+from kraken_tpu_torch.ops.build import DTYPE_CODES, raw_stream
 
-__all__ = ['group_norm', 'group_norm_reference', 'blocks_per_group']
+__all__ = ['group_norm', 'group_norm_reference', 'blocks_per_group', 'cluster_occupancy']
 
 # the kernel's launch aims at about this many blocks (8 per SM of an H100)
 _TARGET_BLOCKS = 8 * 132
@@ -87,15 +95,121 @@ def blocks_per_group(groups: int, rows: int) -> int:
     return -(-rows // -(-rows // S))
 
 
+# What the cluster design may use on an H100 (sm_90): dynamic shared memory
+# per CTA (the 232,448 bytes a block may take, less 1 KB for the kernel's
+# static shared memory) and the cluster sizes it tries (8 is portable, 16
+# needs the non-portable opt-in). Mirrors csrc/groupnorm.cu:cluster_smem;
+# chip_smoke.py checks the mirror against the card.
+SMEM_PER_CTA = 232448 - 1024
+CLUSTER_SIZES = (8, 16)
+_ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
+
+
+def _cluster_smem(rows: int, W: int, dtype: torch.dtype) -> int:
+    """Bytes of dynamic shared memory a CTA of the cluster design takes to
+    hold up to `rows` rows of W elements: the rows in x's own type from the
+    16-byte line that holds their first element, in whole 16-byte lines with
+    room for both ragged ends, then each row's fp32 weight and bias."""
+    return (rows * W * _ELEMENT_BYTES[dtype] + 32 + 15) // 16 * 16 + 8 * rows
+
+
+def _cta_rows(rows: int, CL: int, rank: int) -> range:
+    """The rows of a group that CTA `rank` of a cluster of CL takes."""
+    return range(rank * rows // CL, (rank + 1) * rows // CL)
+
+
+@functools.lru_cache(maxsize=256)
+def _design(N: int, C: int, H: int, W: int, G: int, dtype: torch.dtype) -> tuple:
+    """
+    The kernel design for a call, from its shapes alone:
+    ``('cluster', CL, R)`` holds each of the N*G groups in a cluster of CL
+    CTAs of at most R rows each; ``('stream',)`` reads each group twice, for
+    groups whose rows do not fit a cluster's shared memory.
+
+    CL is the smallest cluster size of :data:`CLUSTER_SIZES` (at most the
+    group's Cg*H rows) whose CTAs hold their rows.
+    """
+    rows = (C // G) * H
+    for size in CLUSTER_SIZES:
+        CL = min(size, rows)
+        R = -(-rows // CL)
+        if _cluster_smem(R, W, dtype) <= SMEM_PER_CTA:
+            return ('cluster', CL, R)
+    return ('stream',)
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """The kernel's C entry point, with its argument types (built at first use)."""
+def _lib():
+    """The kernel library with the argument types of its entry points
+    (built at first use)."""
     from kraken_tpu_torch.ops.build import load_library
-    fn = load_library('groupnorm').groupnorm_forward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float] \
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = load_library('groupnorm')
+    lib.groupnorm_forward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+        + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.groupnorm_cluster.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+        + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.groupnorm_cluster_occupancy.argtypes = [ctypes.c_int] * 7 \
+        + [ctypes.POINTER(ctypes.c_int)] * 3
+    for fn in (lib.groupnorm_forward, lib.groupnorm_cluster, lib.groupnorm_cluster_occupancy):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=256)
+def cluster_occupancy(C: int, H: int, W: int, G: int, CL: int, dtype: torch.dtype,
+                      device: int = 0) -> tuple[int, int, int]:
+    """
+    What the cluster design asks of the card for groups of (C, H, W) in G
+    groups with clusters of CL, as the kernel source computes it: (dynamic
+    shared memory per CTA in bytes, threads per CTA, clusters of this shape
+    the card holds at once, from ``cudaOccupancyMaxActiveClusters``; 0 when
+    it cannot run one). Builds the kernel library; needs a card.
+    """
+    smem, threads, clusters = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _lib().groupnorm_cluster_occupancy(C, H, W, G, CL, DTYPE_CODES[dtype], device,
+                                             ctypes.byref(smem), ctypes.byref(threads),
+                                             ctypes.byref(clusters))
+    if err != 0:
+        raise RuntimeError(f'group_norm cluster design refused for C={C} H={H} W={W} G={G} '
+                           f'CL={CL} {dtype}: cudaError {err}')
+    return smem.value, threads.value, clusters.value
+
+
+def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int,
+            eps: float, seq_len: Optional[torch.Tensor], design: tuple) -> torch.Tensor:
+    """Launches ``design`` of ``csrc/groupnorm.cu`` on checked CUDA tensors
+    and counts its launches; raises if the card cannot hold the cluster
+    design's shape or a launch is refused."""
+    N, C, H, W = x.shape
+    G = num_groups
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    dev = x.device.index
+    lens = seq_len.data_ptr() if seq_len is not None else None
+    w32 = weight.to(torch.float32).contiguous()  # no copy when already fp32
+    b32 = bias.to(torch.float32).contiguous()
+    if design[0] == 'cluster':
+        CL = design[1]
+        if cluster_occupancy(C, H, W, G, CL, x.dtype, dev)[2] == 0:
+            raise RuntimeError(f'group_norm: the card cannot hold a cluster of {CL} CTAs for '
+                               f'groups of {(N, C, H, W)} / {G} in {x.dtype}')
+        err = _lib().groupnorm_cluster(x.data_ptr(), lens, w32.data_ptr(), b32.data_ptr(),
+                                       y.data_ptr(), N, C, H, W, G, CL, float(eps),
+                                       DTYPE_CODES[x.dtype], dev, raw_stream(dev))
+        launches = 1
+    else:
+        S = blocks_per_group(N * G, (C // G) * H)
+        partial = torch.empty((N * G * S * 3,), dtype=torch.float32, device=x.device)
+        err = _lib().groupnorm_forward(x.data_ptr(), lens, partial.data_ptr(), w32.data_ptr(),
+                                       b32.data_ptr(), y.data_ptr(), N, C, H, W, G, S,
+                                       float(eps), DTYPE_CODES[x.dtype], dev, raw_stream(dev))
+        launches = 2  # statistics, then merge + normalise
+    if err != 0:
+        raise RuntimeError(f'group_norm {design[0]} kernel launch failed: cudaError {err}')
+    group_norm.launches += launches
+    group_norm.design_launches[design[0]] += launches
+    return y
 
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -106,18 +220,20 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     :func:`group_norm_reference`).
 
     On a CPU tensor this is the plain version. On a CUDA tensor it runs the
-    kernel of ``csrc/groupnorm.cu`` on the current stream (two launches: the
-    partial statistics, then the merge and normalisation) and adds two to
-    ``group_norm.launches``; it raises on a type, shape, layout or device
-    the kernel does not take and when a launch is refused. The kernel takes
-    `x` contiguous in float32, bfloat16 or float16; `weight` and `bias` are
-    read in float32 (a copy is made when they are in another type) and
-    `seq_len` as int32.
+    design of ``csrc/groupnorm.cu`` that :func:`_design` picks for the
+    shapes, on the current stream, and adds its device launches (1 for
+    ``cluster``, 2 for ``stream``) to ``group_norm.launches`` and to the
+    design's entry of ``group_norm.design_launches``; it raises on a type,
+    shape, layout or device the kernel does not take and when a launch is
+    refused. The kernel takes `x` contiguous in float32, bfloat16 or
+    float16; `weight` and `bias` are read in float32 (a copy is made when
+    they are in another type) and `seq_len` as int32.
     """
-    if x.device.type == 'cpu':
+    device = x.device
+    if device.type == 'cpu':
         return group_norm_reference(x, weight, bias, num_groups, eps, seq_len)
-    if x.device.type != 'cuda':
-        raise ValueError(f'group_norm runs on cpu or cuda tensors, not {x.device}')
+    if device.type != 'cuda':
+        raise ValueError(f'group_norm runs on cpu or cuda tensors, not {device}')
     if x.dim() != 4:
         raise ValueError(f'x must be (N, C, H, W), got {tuple(x.shape)}')
     N, C, H, W = x.shape
@@ -129,30 +245,16 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         raise ValueError('x must be contiguous')
     if tuple(weight.shape) != (C,) or tuple(bias.shape) != (C,):
         raise ValueError(f'weight and bias must be ({C},)')
-    tensors = [weight, bias] + ([seq_len] if seq_len is not None else [])
-    if any(t.device != x.device for t in tensors):
+    if weight.device != device or bias.device != device or \
+            (seq_len is not None and seq_len.device != device):
         raise ValueError('x, weight, bias and seq_len must lie on one device')
     if seq_len is not None:
         if tuple(seq_len.shape) != (N,):
             raise ValueError(f'seq_len must be ({N},), got {tuple(seq_len.shape)}')
         seq_len = seq_len.to(torch.int32).contiguous()
-    y = torch.empty_like(x)
-    if x.numel() == 0:
-        return y
-    G = num_groups
-    S = blocks_per_group(N * G, (C // G) * H)
-    partial = torch.empty((N * G * S * 3,), dtype=torch.float32, device=x.device)
-    w32 = weight.to(torch.float32).contiguous()
-    b32 = bias.to(torch.float32).contiguous()
-    fn = _kernel()
-    err = fn(x.data_ptr(), seq_len.data_ptr() if seq_len is not None else None,
-             partial.data_ptr(), w32.data_ptr(), b32.data_ptr(), y.data_ptr(),
-             N, C, H, W, G, S, float(eps), DTYPE_CODES[x.dtype], x.device.index,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'group_norm kernel launch failed: cudaError {err}')
-    group_norm.launches += 2  # statistics, then merge + normalise
-    return y
+    return _launch(x, weight, bias, num_groups, eps, seq_len,
+                   _design(N, C, H, W, num_groups, x.dtype))
 
 
 group_norm.launches = 0
+group_norm.design_launches = {'cluster': 0, 'stream': 0}

@@ -24,7 +24,7 @@ import functools
 
 import torch
 
-from kraken_tpu_torch.ops.build import DTYPE_CODES
+from kraken_tpu_torch.ops.build import DTYPE_CODES, raw_stream
 
 __all__ = ['seg_head', 'seg_head_reference']
 
@@ -79,6 +79,24 @@ def _kernel():
     return fn
 
 
+def geometry(h: int, w: int, out_h: int, out_w: int) -> tuple[int, int, int, int]:
+    """
+    The block shape the kernel takes for (h, w) -> (out_h, out_w), as its
+    source computes it: (output columns a block takes, staged input rows,
+    staged input columns, dynamic shared memory in bytes). Builds the kernel
+    library; needs no card.
+    """
+    from kraken_tpu_torch.ops.build import load_library
+    fn = load_library('seghead').seghead_geometry
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int() for _ in range(4)]
+    err = fn(h, w, out_h, out_w, *map(ctypes.byref, out))
+    if err != 0:
+        raise ValueError(f'seghead_geometry refused ({h}, {w}) -> ({out_h}, {out_w})')
+    return tuple(v.value for v in out)
+
+
 def seg_head(logits: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """
     Bilinear upsampling plus sigmoid (same arguments and result as
@@ -91,22 +109,22 @@ def seg_head(logits: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     float16), on a shrinking size, and when the launch is refused.
     """
     _check_upsampling(logits.shape, out_h, out_w)
-    if logits.device.type == 'cpu':
+    device = logits.device
+    if device.type == 'cpu':
         return seg_head_reference(logits, out_h, out_w)
-    if logits.device.type != 'cuda':
-        raise ValueError(f'seg_head runs on cpu or cuda tensors, not {logits.device}')
-    if logits.dtype not in DTYPE_CODES:
+    if device.type != 'cuda':
+        raise ValueError(f'seg_head runs on cpu or cuda tensors, not {device}')
+    code = DTYPE_CODES.get(logits.dtype)
+    if code is None:
         raise TypeError(f'logits must be float32, bfloat16 or float16, not {logits.dtype}')
     if not logits.is_contiguous():
         raise ValueError('logits must be contiguous')
     N, K, h, w = logits.shape
-    y = torch.empty((N, K, out_h, out_w), dtype=torch.float32, device=logits.device)
+    y = torch.empty((N, K, out_h, out_w), dtype=torch.float32, device=device)
     if y.numel() == 0:
         return y
-    fn = _kernel()
-    err = fn(logits.data_ptr(), y.data_ptr(), N, K, h, w, out_h, out_w,
-             DTYPE_CODES[logits.dtype], logits.device.index,
-             torch.cuda.current_stream(logits.device).cuda_stream)
+    err = _kernel()(logits.data_ptr(), y.data_ptr(), N, K, h, w, out_h, out_w, code,
+                    device.index, raw_stream(device.index))
     if err != 0:
         raise RuntimeError(f'seg_head kernel launch failed: cudaError {err}')
     seg_head.launches += 1

@@ -188,44 +188,99 @@ def _within(out: torch.Tensor, ref: torch.Tensor, dtype) -> bool:
     return bool((err <= 2e-2 * ref.float().abs().clamp(min=1)).all())
 
 
+def _group_norm_inputs(shape, dtype, device):
+    rng = np.random.RandomState(sum(shape))
+    x = torch.from_numpy(np.maximum(rng.randn(*shape), 0).astype(np.float32)).to(device, dtype)
+    w = torch.from_numpy((1 + 0.1 * rng.randn(shape[1])).astype(np.float32)).to(device, dtype)
+    b = torch.from_numpy((0.1 * rng.randn(shape[1])).astype(np.float32)).to(device, dtype)
+    return x, w, b
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize('forced', [None, 'stream'])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('shape, groups, lens', [
     ((1, 32, 256, 177), 8, None),        # the shipped model's first Gn
     ((1, 96, 128, 89), 16, None),
+    ((1, 128, 450, 312), 32, None),      # the full-size spec: 16 CTAs a cluster in fp32
     ((3, 16, 37, 61), 4, [61, 30, 1]),   # ragged lengths, 1 and full
     ((2, 96, 20, 33), 16, [5, 40]),      # a length beyond W is clamped
 ])
-def test_group_norm_kernel_matches_plain(cuda_device, shape, groups, lens, dtype):
-    from kraken_tpu_torch.ops.groupnorm import group_norm, group_norm_reference
-    rng = np.random.RandomState(sum(shape))
-    x = torch.from_numpy(np.maximum(rng.randn(*shape), 0).astype(np.float32)).to(cuda_device, dtype)
-    w = torch.from_numpy((1 + 0.1 * rng.randn(shape[1])).astype(np.float32)).to(cuda_device, dtype)
-    b = torch.from_numpy((0.1 * rng.randn(shape[1])).astype(np.float32)).to(cuda_device, dtype)
+def test_group_norm_kernel_matches_plain(cuda_device, shape, groups, lens, dtype, forced):
+    """Each design against the plain version: the one the shapes pick (all
+    of these take the cluster design) and the stream design forced; each
+    call counts its device launches (1 cluster, 2 stream) under its design."""
+    from kraken_tpu_torch.ops.groupnorm import _design, _launch, group_norm, group_norm_reference
+    x, w, b = _group_norm_inputs(shape, dtype, cuda_device)
     seq = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda_device)
-    before = group_norm.launches
-    y = group_norm(x, w, b, groups, 1e-5, seq)
+    design = ('stream',) if forced else _design(*shape, groups, dtype)
+    assert forced or design[0] == 'cluster'
+
+    def run():
+        if forced:
+            return _launch(x, w, b, groups, 1e-5, seq, design)
+        return group_norm(x, w, b, groups, 1e-5, seq)
+
+    before, before_design = group_norm.launches, dict(group_norm.design_launches)
+    y = run()
     torch.cuda.synchronize()
-    assert group_norm.launches == before + 2  # statistics, then merge + normalise
+    per_call = 1 if design[0] == 'cluster' else 2  # stream: statistics, then merge + normalise
+    assert group_norm.launches == before + per_call
+    assert group_norm.design_launches[design[0]] == before_design[design[0]] + per_call
+    assert sum(group_norm.design_launches.values()) == sum(before_design.values()) + per_call
     ref = group_norm_reference(x, w, b, groups, 1e-5, seq)
     assert y.dtype == dtype and y.shape == x.shape
     assert _within(y, ref, dtype)
     if lens is not None:
         for n, L in enumerate(lens):
             assert not y[n, :, :, min(L, shape[3]):].any()
-    # the same call again gives the same bits (no float atomics)
-    assert torch.equal(group_norm(x, w, b, groups, 1e-5, seq), y)
+    # the same call again gives the same bits (fixed merge order, no float atomics)
+    assert torch.equal(run(), y)
+
+
+@pytest.mark.cuda
+def test_group_norm_raises_when_the_cluster_launch_is_refused(cuda_device):
+    """A cluster shape the card cannot hold (2 CTAs of 362 KB each) raises;
+    it does not fall back to the stream design."""
+    from kraken_tpu_torch.ops.groupnorm import _launch, group_norm
+    x, w, b = _group_norm_inputs((1, 32, 256, 177), torch.float32, cuda_device)
+    before = dict(group_norm.design_launches)
+    with pytest.raises(RuntimeError, match='cluster'):
+        _launch(x, w, b, 8, 1e-5, None, ('cluster', 2, 512))
+    assert group_norm.design_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape, groups, dtype', [
+    ((1, 32, 256, 177), 8, torch.float32), ((1, 96, 128, 89), 16, torch.bfloat16),
+    ((1, 128, 450, 312), 32, torch.float32), ((1, 64, 900, 623), 32, torch.bfloat16)])
+def test_group_norm_cluster_shapes_match_their_mirror(cuda_device, shape, groups, dtype):
+    """The shared memory that ops/groupnorm.py plans with is what the kernel
+    source asks for, and the card holds such clusters."""
+    from kraken_tpu_torch.ops.groupnorm import SMEM_PER_CTA, _cluster_smem, _design, cluster_occupancy
+    _, CL, R = _design(*shape, groups, dtype)
+    smem, threads, clusters = cluster_occupancy(shape[1], *shape[2:], groups, CL, dtype,
+                                                cuda_device.index or 0)
+    assert smem == _cluster_smem(R, shape[3], dtype) <= SMEM_PER_CTA
+    assert threads == 512 and clusters >= 1
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('shape, out', [
     ((1, 10, 128, 89), (512, 354)),      # the shipped model's head
+    ((1, 10, 450, 312), (1800, 1245)),   # the full-size spec's head
     ((2, 3, 13, 9), (50, 31)),           # non-integer ratios
-    ((1, 2, 7, 300), (7, 301)),
+    ((1, 2, 7, 300), (7, 301)),          # OH = h
+    ((2, 3, 13, 20), (50, 81)),          # output widths 1, 2, 3 mod 4
+    ((1, 3, 9, 30), (37, 354)),
+    ((1, 3, 9, 30), (37, 355)),
+    ((1, 2, 10, 17), (40, 17)),          # OW = w
+    ((1, 1, 16, 3000), (64, 12003)),     # several column chunks a row
+    ((1, 2, 40, 30), (40, 4000)),        # OH = h: 17 staged rows a band
 ])
 def test_seg_head_kernel_matches_plain(cuda_device, shape, out, dtype):
-    from kraken_tpu_torch.ops.seghead import seg_head, seg_head_reference
+    from kraken_tpu_torch.ops.seghead import geometry, seg_head, seg_head_reference
     x = torch.from_numpy(np.random.RandomState(shape[2]).randn(*shape).astype(np.float32) * 4)
     x = x.to(cuda_device, dtype)
     before = seg_head.launches
@@ -233,8 +288,13 @@ def test_seg_head_kernel_matches_plain(cuda_device, shape, out, dtype):
     torch.cuda.synchronize()
     assert seg_head.launches == before + 1
     ref = seg_head_reference(x, *out)
-    # the output is fp32 from the same (upcast) inputs whatever the logits' type
+    # the output is fp32 from the same (upcast) inputs whatever the logits'
+    # type, and the kernel rounds every step as the plain version does
     assert y.dtype == torch.float32 and (y - ref).abs().max().item() <= 1e-5
+    if dtype == torch.float32:
+        assert torch.equal(y, ref)
+    cw, rows, cols, smem = geometry(*shape[2:], *out)
+    assert cw % 4 == 0 and rows <= 17 and smem <= 48 << 10
     with pytest.raises(ValueError, match='only upsamples'):
         seg_head(x, shape[2] - 1, out[1])
 
@@ -271,8 +331,8 @@ def test_ridge_kernel_matches_plain(cuda_device, N, K, H, W, channels):
 @pytest.mark.cuda
 @pytest.mark.parametrize('precision', ['32-true', 'bf16-true'])
 def test_segmentation_main_path_launches(cuda_device, precision):
-    """The shipped model on the fixture page: 5 GroupNorm layers (two
-    launches each), 1 head and 1 ridge launch per page, through
+    """The shipped model on the fixture page: 5 GroupNorm layers (one
+    cluster launch each), 1 head and 1 ridge launch per page, through
     SegmentationTaskModel on the card."""
     from PIL import Image
     from kraken_tpu_torch import native
@@ -284,8 +344,10 @@ def test_segmentation_main_path_launches(cuda_device, precision):
     task = SegmentationTaskModel.load_model()
     im = Image.open(RESOURCES / '170025120000003,0074.jpg')
     before = (group_norm.launches, seg_head.launches, sato_ridge_threshold.launches)
+    before_cluster = group_norm.design_launches['cluster']
     seg = task.predict(im, SegmentationInferenceConfig(precision=precision))
     after = (group_norm.launches, seg_head.launches, sato_ridge_threshold.launches)
-    assert tuple(a - b for a, b in zip(after, before)) == (10, 1, 1)
+    assert tuple(a - b for a, b in zip(after, before)) == (5, 1, 1)
+    assert group_norm.design_launches['cluster'] == before_cluster + 5
     assert native.available()
     assert len(seg.lines) > 30 and all(len(line.boundary) >= 3 for line in seg.lines)

@@ -68,6 +68,44 @@ def test_groupnorm_blocks_cover_every_row(groups, rows):
     assert S >= 1 and (S - 1) * per < rows <= S * per
 
 
+# the GroupNorm inputs of the shipped model's page and of the full-size spec
+SHIPPED_GN = [((1, 32, 256, 177), 8), ((1, 64, 128, 89), 16), ((1, 96, 128, 89), 16)]
+FULL_GN = [((1, 64, 900, 623), 32), ((1, 128, 450, 312), 32), ((1, 256, 450, 312), 32)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape, groups', SHIPPED_GN)
+def test_groupnorm_design_shipped_shapes_take_cluster(shape, groups, dtype):
+    """Every GroupNorm of the shipped model runs as one cluster launch."""
+    design = groupnorm._design(*shape, groups, dtype)
+    assert design[0] == 'cluster' and design[1] in groupnorm.CLUSTER_SIZES
+
+
+@pytest.mark.parametrize('shape, groups', [FULL_GN[0], FULL_GN[2]])
+def test_groupnorm_design_large_groups_take_stream(shape, groups):
+    """Groups of 4.5 MB in fp32 fit no cluster: the two-launch design."""
+    assert groupnorm._design(*shape, groups, torch.float32) == ('stream',)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('shape, groups', SHIPPED_GN + FULL_GN + [
+    ((3, 16, 37, 61), 4), ((2, 8, 4, 6), 2), ((1, 4, 1, 5), 4), ((2, 12, 3, 1000), 3)])
+def test_groupnorm_cluster_rows_fit_and_cover_the_group(shape, groups, dtype):
+    """A CTA of the cluster design holds its rows within the 227 KB a block
+    may take, and the CTAs' rows cover every row of the group exactly once."""
+    N, C, H, W = shape
+    design = groupnorm._design(N, C, H, W, groups, dtype)
+    if design[0] == 'stream':
+        return
+    _, CL, R = design
+    rows = (C // groups) * H
+    assert 1 <= CL <= min(16, rows)
+    assert groupnorm._cluster_smem(R, W, dtype) <= groupnorm.SMEM_PER_CTA < 232448
+    taken = [r for rank in range(CL) for r in groupnorm._cta_rows(rows, CL, rank)]
+    assert taken == list(range(rows))
+    assert max(len(groupnorm._cta_rows(rows, CL, rank)) for rank in range(CL)) == R
+
+
 @pytest.mark.parametrize('shape, out', [
     ((1, 10, 16, 11), (64, 44)),     # integer ratio 4
     ((2, 3, 13, 9), (50, 31)),       # non-integer ratios
@@ -79,6 +117,28 @@ def test_seg_head_plain_matches_jax(shape, out):
     got = seghead.seg_head_reference(torch.from_numpy(x), *out)
     assert got.dtype == torch.float32 and tuple(got.shape) == shape[:2] + out
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    assert torch.equal(seghead.seg_head(torch.from_numpy(x), *out), got)
+
+
+@pytest.mark.parametrize('shape, out', [
+    # output widths 1, 2 and 3 mod 4: rows that start inside a 16-byte line,
+    # whose ends the kernel's 16-byte stores peel off
+    ((2, 3, 13, 20), (50, 81)),
+    ((1, 3, 9, 30), (37, 354)),
+    ((1, 3, 9, 30), (37, 355)),
+    ((1, 2, 10, 17), (40, 17)),      # OW = w
+    ((1, 2, 12, 40), (12, 161)),     # OH = h
+])
+def test_seg_head_plain_matches_jax_at_store_widths(shape, out):
+    """atol 1e-5: jax.image.resize rounds the sample coordinate
+    (o + 0.5) * in / out - 0.5 in another order than the align_corners=False
+    rule, an error that grows with the output index; at widths in the
+    hundreds it moves a probability by up to 5e-6 at these logits."""
+    x = (np.random.RandomState(shape[2]).randn(*shape) * 3).astype(np.float32)
+    want = jax.nn.sigmoid(jax.image.resize(jnp.asarray(x), shape[:2] + out, method='bilinear'))
+    got = seghead.seg_head_reference(torch.from_numpy(x), *out)
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape[:2] + out
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
     assert torch.equal(seghead.seg_head(torch.from_numpy(x), *out), got)
 
 
