@@ -20,6 +20,12 @@ page) or raises; on a CPU tensor it runs :func:`sato_ridge_reference`, the
 plain PyTorch version (the JAX package's two convolutions). The kernel
 reads its taps from constant memory, which :func:`upload_bank` fills once
 per device and process (the bank is the same for every model).
+
+:func:`plan` mirrors in plain Python the launch the kernel takes (tile,
+threads, shared memory, grid) and :func:`macs_per_pixel` the multiply-adds
+a pixel it does; :func:`geometry` asks the kernel source itself.
+:func:`bound_slots_per_pixel` counts the least instructions a pixel the
+filter needs, for its bound.
 """
 import ctypes
 import functools
@@ -31,10 +37,17 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ['sato_ridge_threshold', 'sato_ridge_reference', 'sato_kernel_bank',
-           'upload_bank', 'SIGMAS']
+           'upload_bank', 'plan', 'geometry', 'macs_per_pixel', 'bound_slots_per_pixel',
+           'SIGMAS']
 
 SIGMAS = (1, 3, 5, 7, 9)
 MAX_CHANNELS = 32
+# the kernel's launch (csrc/ridge.cu): a block of THREADS threads takes an
+# output tile of TILE_W x TILE_H pixels, staged with a halo of the largest
+# radius, int(4 * 9 + 0.5)
+TILE_W, TILE_H = 128, 16
+THREADS = 256
+MAX_RADIUS = 36
 
 _BANK_LOCK = threading.Lock()
 _BANK_ON: set[int] = set()
@@ -110,6 +123,78 @@ def sato_ridge_reference(maps: torch.Tensor, sigmas: tuple = SIGMAS) -> torch.Te
         low = 0.5 * (hyy + hxx - tmp)
         response = torch.maximum(response, torch.where(low < 0, -low, 0.0))
     return response
+
+
+def plan(N: int, nc: int, H: int, W: int) -> tuple[int, int, int, int, tuple[int, int]]:
+    """
+    The launch the kernel takes for `nc` channels of `N` (H, W) maps, as
+    ``csrc/ridge.cu`` computes it: (tile width, tile height, threads a
+    block, dynamic shared memory bytes a block, grid). The grid is
+    (tiles_x * tiles_y, N * nc); block (t, p) takes the tile at row
+    ``(t // tiles_x) * TILE_H`` and column ``(t % tiles_x) * TILE_W`` of plane p.
+    """
+    in_w, in_h = TILE_W + 2 * MAX_RADIUS, TILE_H + 2 * MAX_RADIUS
+    # the staged tile and the three intermediates (row stride in_w + 1)
+    smem = 4 * (in_w * in_h + 3 * TILE_H * (in_w + 1))
+    tiles = -(-W // TILE_W) * -(-H // TILE_H)
+    return TILE_W, TILE_H, THREADS, smem, (tiles, N * nc)
+
+
+def geometry(N: int, nc: int, H: int, W: int) -> tuple[int, int, int, int, tuple[int, int]]:
+    """:func:`plan` as the kernel source answers it (``ridge_geometry``).
+    Builds the kernel library; needs no card."""
+    from kraken_tpu_torch.ops.build import load_library
+    fn = load_library('ridge').ridge_geometry
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 6
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int() for _ in range(6)]
+    err = fn(N, nc, H, W, *map(ctypes.byref, out))
+    if err != 0:
+        raise ValueError(f'ridge_geometry refused N={N} nc={nc} H={H} W={W}')
+    tw, th, threads, smem, gx, gy = (v.value for v in out)
+    return tw, th, threads, smem, (gx, gy)
+
+
+def macs_per_pixel(tile_w: int = TILE_W, sigmas: tuple = SIGMAS) -> float:
+    """
+    Multiply-adds a pixel the kernel issues with `tile_w`-wide tiles: per
+    sigma of radius r, 3 components of 2r + 1 taps in a vertical pass that
+    filters tile_w + 2r columns for tile_w outputs, then in a horizontal
+    pass. 1,482.1875 at 128 (this kernel), 2,238.75 at 32 (the 32 x 32
+    tiles of the design it replaced).
+    """
+    total = 0.0
+    for sigma in sigmas:
+        r = int(4 * sigma + 0.5)
+        total += 3 * (2 * r + 1) * ((tile_w + 2 * r) / tile_w + 1)
+    return total
+
+
+def bound_slots_per_pixel(sigmas: tuple = SIGMAS) -> int:
+    """
+    The least fp32 instructions a pixel the filter needs, each an FFMA or
+    an FADD (one issue slot each, at the same rate), counted on the kernel
+    bank: g0 and g2 are even and g1 is odd, and their zero taps (g1's
+    centre, g2's at ±sigma) cost nothing. In the vertical pass the 3
+    components share one input, so a tap pair (t, -t) costs its sum and
+    difference (for the even and the odd components) and one FFMA a
+    non-zero component, 5 where all 3 are non-zero instead of 6 taken one
+    by one. The horizontal pass filters 3 different intermediates, where a
+    pair saves nothing: one instruction a non-zero tap. 1,105 for the
+    default sigmas (505 + 600), against 1,230 multiply-adds tap by tap.
+    """
+    bank = sato_kernel_bank(sigmas)
+    slots, start = 0, 0
+    for sigma in sigmas:
+        r = int(4 * sigma + 0.5)
+        nonzero = bank[start:start + 3 * (2 * r + 1)].reshape(3, 2 * r + 1) != 0
+        start += nonzero.size
+        slots += int(nonzero[:, r].sum()) + int(nonzero.sum())
+        for t in range(r + 1, 2 * r + 1):
+            k = int(nonzero[:, t].sum())
+            adds = int(nonzero[0, t] or nonzero[2, t]) + int(nonzero[1, t])
+            slots += min(adds + k, 2 * k)
+    return slots
 
 
 def upload_bank(device: torch.device) -> None:

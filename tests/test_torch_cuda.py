@@ -303,6 +303,16 @@ def test_seg_head_kernel_matches_plain(cuda_device, shape, out, dtype):
 @pytest.mark.parametrize('N, K, H, W, channels', [
     (1, 10, 512, 354, (2, 3, 4, 5)),     # the shipped model's baseline channels
     (2, 3, 45, 77, (0, 2)),              # tiles cut by both edges
+    (1, 2, 40, 127, (0, 1)),             # W one below, at and one above the 128-wide tile
+    (1, 2, 41, 128, (1,)),
+    (1, 2, 42, 129, (0, 1)),
+    (1, 2, 20, 1245, (0, 1)),            # the full-size width: 10 tiles, the last 93 wide
+    (1, 2, 15, 200, (0, 1)),             # H one below, at and one above the 16-row tile
+    (1, 2, 16, 200, (0, 1)),
+    (1, 2, 17, 200, (0, 1)),
+    (1, 2, 7, 300, (0, 1)),              # maps thinner than one tile and than the largest radius
+    (1, 2, 300, 7, (0, 1)),
+    (2, 5, 64, 150, (1, 3)),             # two pages, a channel subset
 ])
 def test_ridge_kernel_matches_plain(cuda_device, N, K, H, W, channels):
     from kraken_tpu_torch.ops.ridge import sato_ridge_reference, sato_ridge_threshold
@@ -326,6 +336,32 @@ def test_ridge_kernel_matches_plain(cuda_device, N, K, H, W, channels):
     differ = mask.bool() != (ref > 0.17)
     assert ((ref[differ] - 0.17).abs() <= 1e-5).all()
     assert bool((ref > 0.17).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('N, nc, H, W', [
+    (1, 4, 512, 354), (1, 4, 1800, 1245), (2, 3, 45, 77), (1, 2, 7, 300), (1, 2, 300, 7),
+    (3, 32, 17, 129)])
+def test_ridge_geometry_matches_its_mirror(cuda_device, N, nc, H, W):
+    """The launch that ops/ridge.py plans with is what the kernel source
+    computes, and its shared memory fits two blocks an SM."""
+    from kraken_tpu_torch.ops.ridge import geometry, plan
+    assert geometry(N, nc, H, W) == plan(N, nc, H, W)
+    props = torch.cuda.get_device_properties(cuda_device)
+    smem = plan(N, nc, H, W)[3]
+    assert 2 * (smem + 1024) <= props.shared_memory_per_multiprocessor
+
+
+@pytest.mark.cuda
+def test_ridge_raises_when_the_launch_is_refused(cuda_device):
+    """More than 65535 planes: the kernel refuses the launch, the wrapper
+    raises and counts nothing; it does not fall back to the plain version."""
+    from kraken_tpu_torch.ops.ridge import sato_ridge_threshold
+    probs = torch.zeros((65536, 1, 1, 1), device=cuda_device)
+    before = sato_ridge_threshold.launches
+    with pytest.raises(RuntimeError, match='launch failed'):
+        sato_ridge_threshold(probs, (0,), 0.17)
+    assert sato_ridge_threshold.launches == before
 
 
 @pytest.mark.cuda

@@ -10,10 +10,16 @@ JAX functions they port, on the same numpy-seeded inputs (fp32):
   (atol 1e-6), at integer and non-integer ratios;
 - the Sato ridge filter against ``ops/ridge._sato_core_batch`` (atol 1e-5,
   the tolerance of the JAX package's own ridge tests), with masks equal
-  except at pixels within 1e-5 of the threshold.
+  except at pixels within 1e-5 of the threshold;
+- the ridge kernel's launch as ``ops/ridge.plan`` mirrors it: shared memory
+  for two blocks an SM, tiles that cover every pixel once, conflict-free
+  shared loads; its multiply-adds a pixel, the least instructions its bound
+  counts, and the versions ``chip_smoke.py --ridge-variants`` makes of it.
 
 The CUDA kernels themselves run in tests/test_torch_cuda.py (GPU only).
 """
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +29,8 @@ import torch
 from kraken_tpu.nn.layers import GroupNorm as JaxGroupNorm
 from kraken_tpu.ops import ridge as jax_ridge
 from kraken_tpu_torch.ops import groupnorm, ridge, seghead
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 def _groupnorm_inputs(shape, seed):
@@ -197,3 +205,94 @@ def test_ridge_wrapper_checks_channels():
         ridge.sato_ridge_threshold(torch.zeros(1, 3, 8, 8), (3,), 0.17)
     with pytest.raises(ValueError, match='response'):
         ridge.sato_ridge_threshold(torch.zeros(1, 3, 8, 8), (0,), 0.17, torch.zeros(1, 2, 8, 8))
+
+
+# the ridge's shipped and full-size maps and the kernel's edge cases: widths
+# around the 128-wide tile and 1245, heights around the 16-row tile, maps
+# thinner than a tile and than the largest radius, two pages
+RIDGE_PLANES = [(1, 4, 512, 354), (1, 4, 1800, 1245), (2, 2, 45, 77), (1, 2, 40, 127),
+                (1, 1, 41, 128), (1, 2, 42, 129), (1, 2, 20, 1245), (1, 2, 15, 200),
+                (1, 2, 16, 200), (1, 2, 17, 200), (1, 2, 7, 300), (1, 2, 300, 7), (2, 2, 64, 150)]
+
+
+@pytest.mark.parametrize('N, nc, H, W', RIDGE_PLANES)
+def test_ridge_plan_fits_two_blocks_an_sm(N, nc, H, W):
+    tw, th, threads, smem, grid = ridge.plan(N, nc, H, W)
+    # 228 KB an SM, 1 KB of it reserved a block: 113 KB each for two blocks
+    assert (tw, th, threads) == (128, 16, 256) and smem == 108_992 <= 113 << 10
+    assert grid[1] == N * nc <= 65535
+
+
+@pytest.mark.parametrize('N, nc, H, W', RIDGE_PLANES)
+def test_ridge_grid_covers_every_pixel_once(N, nc, H, W):
+    """Block (t, p) takes the tile at row (t // tiles_x) * TH and column
+    (t % tiles_x) * TW of plane p, as the kernel computes it; together the
+    tiles cover each pixel of each plane exactly once, and the 256 threads
+    of a block own 8 pixels each."""
+    tw, th, threads, _, (tiles, planes) = ridge.plan(N, nc, H, W)
+    tiles_x = -(-W // tw)
+    assert threads * 8 == tw * th and planes == N * nc
+    hits = np.zeros((H, W), np.int32)
+    for t in range(tiles):
+        y0, x0 = (t // tiles_x) * th, (t % tiles_x) * tw
+        assert y0 < H and x0 < W, 'a block with no pixel of the map'
+        hits[y0:y0 + th, x0:x0 + tw] += 1
+    assert (hits == 1).all()
+
+
+def test_ridge_horizontal_loads_hit_distinct_banks():
+    """The horizontal pass: warp w takes rows 8 (w // 4) + lane // 4 and the
+    8 columns from 32 (w % 4) + 8 (lane % 4); the intermediates' row stride
+    is the staged width + 1 (201 = 9 mod 32). One tap step's loads of a warp
+    hit 32 distinct banks, and the 8 warps own the 128 x 16 tile once."""
+    stride = ridge.TILE_W + 2 * ridge.MAX_RADIUS + 1
+    assert stride % 32 == 9
+    owned = np.zeros((ridge.TILE_H, ridge.TILE_W), np.int32)
+    for warp in range(ridge.THREADS // 32):
+        lanes = np.arange(32)
+        rows = 8 * (warp // 4) + lanes // 4
+        cols = 32 * (warp % 4) + 8 * (lanes % 4)
+        for u in range(80):
+            assert len(set((rows * stride + cols + u) % 32)) == 32
+        for y, x in zip(rows, cols):
+            owned[y, x:x + 8] += 1
+    assert (owned == 1).all()
+
+
+def test_ridge_macs_per_pixel():
+    assert ridge.macs_per_pixel() == ridge.macs_per_pixel(128) == 1482.1875   # this kernel
+    assert ridge.macs_per_pixel(32) == 2238.75     # the 32 x 32 tiles of the first design
+
+
+def test_ridge_bound_counts_the_least_instructions():
+    """The bound's count rests on the bank's symmetry (g0 and g2 even, g1
+    odd, so a vertical tap pair shares its sum and difference among the 3
+    components) and on its zero taps (g1's centre, g2's at ±sigma): per
+    sigma of radius r, 5r + 1 instructions a pixel in the vertical pass and
+    6r in the horizontal one."""
+    bank = ridge.sato_kernel_bank()
+    start = 0
+    for sigma in ridge.SIGMAS:
+        r = int(4 * sigma + 0.5)
+        g0, g1, g2 = bank[start:start + 3 * (2 * r + 1)].reshape(3, 2 * r + 1)
+        start += 3 * (2 * r + 1)
+        np.testing.assert_array_equal(g0, g0[::-1])
+        np.testing.assert_array_equal(g2, g2[::-1])
+        np.testing.assert_array_equal(g1, -g1[::-1])
+        assert np.flatnonzero(g1 == 0).tolist() == [r]
+        assert np.flatnonzero(g2 == 0).tolist() == [r - sigma, r + sigma] and (g0 != 0).all()
+    radii = [int(4 * sigma + 0.5) for sigma in ridge.SIGMAS]
+    assert ridge.bound_slots_per_pixel() == sum(11 * r + 1 for r in radii) == 1105
+
+
+def test_ridge_variants_apply_to_the_kernel_source():
+    """Every version ``chip_smoke.py --ridge-variants`` builds is an edit of
+    the kernel source that still finds its text there, exactly once."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location('chip_smoke', REPO / 'chip_smoke.py')
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    source = (REPO / 'kraken_tpu_torch' / 'csrc' / 'ridge.cu').read_text()
+    for name, edits in smoke.RIDGE_VARIANTS.items():
+        made = smoke.ridge_variant_source(name, source)
+        assert (made == source) == (not edits), name
