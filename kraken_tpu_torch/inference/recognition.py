@@ -21,6 +21,7 @@ posteriors.
 import contextlib
 import dataclasses
 import logging
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import TYPE_CHECKING
 
@@ -77,17 +78,39 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+# _precise_fp32 holds the process-wide TF32 flags off while any thread is
+# inside it (the page pipeline segments on its prefetch threads while the
+# recognition dispatcher runs): the first to enter saves and clears them,
+# the last to leave restores them
+_TF32_LOCK = threading.Lock()
+_TF32_HOLDERS = 0
+_TF32_SAVED = (False, False)
+
+
 @contextlib.contextmanager
 def _precise_fp32(dtype: torch.dtype):
-    """Keeps float32 convolutions out of TF32 (cuDNN's default), so an fp32
-    forward matches the JAX package's fp32 forward."""
+    """Keeps float32 convolutions (cuDNN's default) and matmuls (after a
+    caller's ``torch.set_float32_matmul_precision('high')``) out of TF32,
+    so an fp32 forward matches the JAX package's fp32 forward; both flags
+    are restored on exit."""
+    global _TF32_HOLDERS, _TF32_SAVED
     if dtype != torch.float32:
         yield
         return
-    cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=False):
+    backends = torch.backends
+    with _TF32_LOCK:
+        if _TF32_HOLDERS == 0:
+            _TF32_SAVED = (backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32)
+            backends.cuda.matmul.allow_tf32 = False
+            backends.cudnn.allow_tf32 = False
+        _TF32_HOLDERS += 1
+    try:
         yield
+    finally:
+        with _TF32_LOCK:
+            _TF32_HOLDERS -= 1
+            if _TF32_HOLDERS == 0:
+                backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32 = _TF32_SAVED
 
 
 def prepare_recognition(model: 'VGSLModel', config) -> None:
@@ -105,14 +128,16 @@ def prepare_recognition(model: 'VGSLModel', config) -> None:
     model._m_dtype = dtype
 
 
-def _forward(model: 'VGSLModel', x: torch.Tensor, seq_lens: torch.Tensor, temperature: float):
-    """Network forward plus the softmax/argmax/max tail, on the model's device."""
+def _forward(model: 'VGSLModel', x: torch.Tensor, seq_lens: torch.Tensor, temperature: float,
+             probs: bool = True):
+    """Network forward plus the softmax/argmax/max tail (``csrc/tail.cu`` on
+    the card), on the model's device; the (N, C, W) posteriors are None
+    unless `probs` asks for them."""
+    from kraken_tpu_torch.ops.tail import recognition_tail
     with torch.inference_mode(), _precise_fp32(model._m_dtype):
         logits, olens = model.net(x, seq_lens)
-        probs = torch.softmax(logits.to(torch.float32) / temperature, dim=1).squeeze(2)
-        labels = probs.argmax(dim=1)
-        confs = probs.amax(dim=1)
-    return probs, labels, confs, olens
+        p, labels, confs = recognition_tail(logits, temperature, probs=probs)
+    return p, labels, confs, olens
 
 
 def _extract_line(im, segmentation, line_idx: int, legacy: bool):
@@ -349,7 +374,9 @@ def _dispatch_batch(model: 'VGSLModel', lines: list):
     device = model._device
     x = torch.from_numpy(batch).to(device=device, dtype=model._m_dtype)
     lens = torch.from_numpy(seq_lens).to(device)
-    return _forward(model, x, lens, config.temperature), lines
+    from kraken_tpu_torch.ops.ctc import greedy_decoder
+    probs = config.return_logits or config.decoder is not greedy_decoder
+    return _forward(model, x, lens, config.temperature, probs=probs), lines
 
 
 def _decode_batch_results(model: 'VGSLModel', outputs, lines: list):

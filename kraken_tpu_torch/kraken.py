@@ -1,0 +1,472 @@
+"""
+kraken_tpu_torch.kraken
+~~~~~~~~~~~~~~~~~~~~~~~
+
+Command line driver for inference, the counterpart of the JAX package's
+``kraken.py``: a chainable ``segment ocr`` pipeline over input/output file
+pairs or glob batches, with ALTO/PageXML/hOCR/abbyyXML serialization
+(reference: kraken/kraken.py). Run it as ``python -m kraken_tpu_torch.kraken``
+or as the ``kraken-torch`` script.
+
+It runs on the card: ``--device`` defaults to ``cuda`` and a run without a
+card stops with a usage error unless it asks for ``--device cpu``. Parts
+that later slices of the port bring (binarization, the legacy box
+segmenter, PDF input) stop with a usage error naming the ROADMAP item; the
+TPU-link options (``--transfer``, ``--devices``, ``--device-vectorize``)
+and the model repository commands (``list``, ``get``, ``show`` of a remote
+model) are not ported.
+"""
+import dataclasses
+import logging
+import os
+import uuid
+import warnings
+from functools import partial
+from pathlib import Path
+from typing import Any, Callable, IO, cast
+
+import click
+
+from kraken_tpu_torch import __version__
+from kraken_tpu_torch.lib import log
+from kraken_tpu_torch.lib.util import default_segmentation_model
+
+warnings.simplefilter('ignore', UserWarning)
+logging.captureWarnings(True)
+logger = logging.getLogger('kraken')
+
+SEGMENTATION_DEFAULT_MODEL = default_segmentation_model()
+
+
+def message(msg: str, **styles) -> None:
+    if logger.getEffectiveLevel() >= 30:
+        click.secho(msg, **styles)
+
+
+def not_ported(what: str, item: str) -> click.UsageError:
+    """The usage error of a part of the CLI that a later slice ports."""
+    return click.UsageError(f'{what} is not ported to kraken_tpu_torch yet '
+                            f'(ROADMAP.md, queue 1, item {item}); use the JAX package\'s '
+                            '`kraken` for it.')
+
+
+def get_input_parser(type_str: str) -> Callable[[str], dict[str, Any]]:
+    from kraken_tpu_torch.xml import XMLPage
+    if type_str in ('alto', 'page', 'xml'):
+        return partial(XMLPage, filetype=type_str)
+    raise ValueError(f'Unknown input parser {type_str}')
+
+
+# ------------------------------------------------------------ stage drivers
+def segmenter(model, config, input, output) -> None:
+    import json
+    from PIL import Image
+
+    ctx = click.get_current_context()
+    if ctx.meta['first_process']:
+        if ctx.meta['input_format_type'] != 'image':
+            input = get_input_parser(ctx.meta['input_format_type'])(input).imagename
+        ctx.meta['first_process'] = False
+    if 'base_image' not in ctx.meta:
+        ctx.meta['base_image'] = input
+    try:
+        im = Image.open(input)
+    except IOError as e:
+        raise click.BadParameter(str(e))
+    message(f'Segmenting\t{input}\t', nl=False)
+    try:
+        res = model.predict(im=im, config=config)
+    except Exception:
+        if ctx.meta['raise_failed']:
+            raise
+        message('✗', fg='red')
+        ctx.exit(1)
+    with click.open_file(output, 'w', encoding='utf-8') as fp:
+        fp = cast('IO[Any]', fp)
+        json.dump(dataclasses.asdict(res), fp, default=str)
+    message('✓', fg='green')
+
+
+def recognizer(model, no_segmentation, config, linetype, input, output) -> None:
+    import json
+    from PIL import Image
+    from kraken_tpu_torch.containers import BBoxLine, Segmentation
+
+    ctx = click.get_current_context()
+    bounds = None
+    if 'base_image' not in ctx.meta:
+        ctx.meta['base_image'] = input
+    if ctx.meta['first_process']:
+        if ctx.meta['input_format_type'] != 'image' and not no_segmentation:
+            doc = get_input_parser(ctx.meta['input_format_type'])(
+                input, linetype=linetype or 'baselines')
+            ctx.meta['base_image'] = doc.imagename
+            bounds = doc.to_container()
+    try:
+        im = Image.open(ctx.meta['base_image'])
+    except IOError as e:
+        raise click.BadParameter(str(e))
+    if not bounds and ctx.meta['base_image'] != input:
+        with click.open_file(input, 'r') as fp:
+            try:
+                fp = cast('IO[Any]', fp)
+                bounds = Segmentation(**json.load(fp))
+            except ValueError as e:
+                raise click.UsageError(f'{input} invalid segmentation: {e}')
+    elif not bounds:
+        if no_segmentation:
+            bounds = Segmentation(type='bbox',
+                                  text_direction='horizontal-lr',
+                                  imagename=ctx.meta['base_image'],
+                                  script_detection=False,
+                                  regions={},
+                                  lines=[BBoxLine(id=f'_{uuid.uuid4()}',
+                                                  bbox=(0, 0, *im.size))])
+        else:
+            raise click.UsageError('No OCR script segmentation given. '
+                                   'Add one with the input or run `segment` first.')
+    elif no_segmentation:
+        logger.warning('--no-segmentation given but the input already carries '
+                       'a segmentation; ignoring the flag.')
+    message(f'Processing\t{input}\t', nl=False)
+    try:
+        records = list(model.predict(im=im, segmentation=bounds, config=config))
+    except Exception:
+        if ctx.meta['raise_failed']:
+            raise
+        message('✗', fg='red')
+        ctx.exit(1)
+    results = dataclasses.replace(bounds, lines=records, imagename=ctx.meta['base_image'])
+
+    ctx.meta['steps'].append({'category': 'processing',
+                              'description': 'Text line recognition',
+                              'settings': {'text_direction': config.text_direction,
+                                           'models': str(getattr(model, 'net', model)),
+                                           'pad': config.padding,
+                                           'bidi_reordering': config.bidi_reordering}})
+    if ctx.meta['output_mode'] != 'native':
+        # lxml is imported here only: native text needs none of it
+        from kraken_tpu_torch import serialization
+        from kraken_tpu_torch.containers import ProcessingStep
+        with click.open_file(output, 'w', encoding='utf-8') as fp:
+            fp = cast('IO[Any]', fp)
+            steps = [ProcessingStep(id=f'_{i}', **step)
+                     for i, step in enumerate(ctx.meta['steps'])]
+            fp.write(serialization.serialize(
+                results,
+                image_size=im.size,
+                writing_mode=ctx.meta['text_direction'],
+                scripts=None,
+                template=ctx.meta['output_mode'] if ctx.meta['output_mode'] != 'hocr' else 'hocr',
+                template_source='custom' if ctx.meta['output_template'] else 'native',
+                processing_steps=steps,
+                sub_line_segmentation=ctx.meta['subline_segmentation']))
+    else:
+        with click.open_file(output, 'w', encoding='utf-8') as fp:
+            fp = cast('IO[Any]', fp)
+            for record in records:
+                fp.write(record.prediction + '\n')
+    message('✓', fg='green')
+
+
+def _resolve_device(device: str) -> str:
+    """The torch device a run asks for; a CUDA device without a card is a
+    usage error, since the port never falls back to the CPU."""
+    import torch
+    try:
+        dev = torch.device(device)
+    except RuntimeError as e:
+        raise click.BadParameter(f'{device!r} is not a torch device ({e}); '
+                                 'use cuda, cuda:N or cpu', param_hint='--device')
+    if dev.type == 'cuda' and not torch.cuda.is_available():
+        raise click.UsageError(f'--device {device} asks for a CUDA card and none is available; '
+                               'pass --device cpu to run on the CPU.')
+    return device
+
+
+# ------------------------------------------------------------------- group
+@click.group(chain=True, context_settings=dict(show_default=True,
+                                               help_option_names=['--help']))
+@click.version_option(version=__version__, prog_name='kraken')
+@click.option('-i', '--input', type=(click.Path(exists=True, dir_okay=False, path_type=Path),
+                                     click.Path(writable=True, dir_okay=False, path_type=Path)),
+              multiple=True, help='Input-output file pairs.')
+@click.option('-I', '--batch-input', multiple=True,
+              help='Glob expression to add multiple files at once.')
+@click.option('-o', '--suffix', default='',
+              help='Suffix for output files from batch inputs.')
+@click.option('-v', '--verbose', default=0, count=True)
+@click.option('-f', '--format-type', type=click.Choice(['image', 'alto', 'page', 'pdf', 'xml']),
+              default='image', help='Sets the default input type (pdf is not ported yet).')
+@click.option('-h', '--hocr', 'serializer', flag_value='hocr',
+              help='Serializer switch (hOCR/ALTO/abbyyXML/PageXML/native).')
+@click.option('-a', '--alto', 'serializer', flag_value='alto')
+@click.option('-y', '--abbyy', 'serializer', flag_value='abbyyxml')
+@click.option('-x', '--pagexml', 'serializer', flag_value='pagexml')
+@click.option('-n', '--native', 'serializer', flag_value='native', default=True)
+@click.option('--layout', 'serializer', flag_value='layout',
+              help='Serialize as a self-contained HTML proofing view '
+                   '(facsimile overlay + editable transcription).')
+@click.option('-t', '--template', type=click.Path(exists=True, dir_okay=False),
+              help='Custom serialization template.')
+@click.option('-d', '--device', default='cuda',
+              help='Select device to use (cuda, cuda:0, ..., cpu).')
+@click.option('--precision', type=click.Choice(['64', '32', 'bf16', '16']), default='32',
+              help='Numerical precision for inference.')
+@click.option('-r', '--raise-on-error/--no-raise-on-error', default=False,
+              help='Raise processing exceptions instead of skipping files.')
+@click.option('--threads', 'num_threads', type=click.IntRange(1), default=1,
+              help='Maximum size of host thread pools.')
+@click.option('--subline-segmentation/--no-subline-segmentation', default=True,
+              help='Enable/disable subline segmentation in serialized output.')
+def cli(input, batch_input, suffix, verbose, format_type, serializer, template, device,
+        precision, raise_on_error, num_threads, subline_segmentation):
+    """
+    Base command for recognition functionality.
+
+    Subcommands are chainable sequences of processing steps applied to every
+    input file in order: segment ocr.
+    """
+    ctx = click.get_current_context()
+    if format_type == 'pdf':
+        raise not_ported('PDF input (-f pdf)', '8')
+    ctx.meta['device'] = _resolve_device(device)
+    ctx.meta['precision'] = {'64': '64-true', '32': '32-true',
+                             'bf16': 'bf16-true', '16': '16-true'}[precision]
+    ctx.meta['input_format_type'] = format_type
+    ctx.meta['raise_failed'] = raise_on_error
+    ctx.meta['output_mode'] = serializer if not template else template
+    ctx.meta['output_template'] = template
+    ctx.meta['verbose'] = verbose
+    ctx.meta['steps'] = []
+    ctx.meta['num_threads'] = num_threads
+    ctx.meta['subline_segmentation'] = subline_segmentation
+    log.set_logger(logger, level=30 - min(10 * verbose, 20))
+
+
+@cli.result_callback()
+def process_pipeline(subcommands, input, batch_input, suffix, verbose, format_type, **args):
+    """
+    Executes the pipeline for every input file.
+    """
+    import glob
+    import tempfile
+
+    ctx = click.get_current_context()
+    # cap host-side compute threads (reference caps BLAS via threadpool_limits,
+    # kraken.py:421; here the heavy host math is OpenCV's)
+    try:
+        import cv2
+        cv2.setNumThreads(ctx.meta.get('num_threads', 1))
+    except ImportError:
+        pass
+    input = list(input)
+    # expand batch inputs
+    if batch_input and suffix:
+        for batch_expr in batch_input:
+            for in_file in glob.glob(str(Path(batch_expr).expanduser()), recursive=True):
+                input.append((Path(in_file), Path(in_file).with_suffix(suffix)))
+
+    for io_pair in input:
+        ctx.meta['first_process'] = True
+        ctx.meta.pop('base_image', None)
+        try:
+            tmps = [tempfile.mkstemp()[1] for _ in subcommands[1:]]
+            for tmp in tmps:
+                os.unlink(tmp)
+            fc = [str(io_pair[0])] + tmps + [str(io_pair[1])]
+            for task, input_pth, output_pth in zip(subcommands, fc, fc[1:]):
+                task(input=input_pth, output=output_pth)
+        except Exception as e:
+            logger.error(f'Failed processing {io_pair[0]}: {e}')
+            if ctx.meta['raise_failed']:
+                raise
+        finally:
+            for tmp in tmps:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+
+
+# -------------------------------------------------------------- subcommands
+@cli.command('binarize')
+def binarize():
+    """
+    Binarizes page images (not ported yet).
+    """
+    raise not_ported('binarize', '8')
+
+
+@cli.command('segment')
+@click.pass_context
+@click.option('-i', '--model', type=str, help='Baseline/region detection model(s) to use',
+              multiple=True)
+@click.option('-x/-bl', '--boxes/--baseline', default=True,
+              help='Switch between legacy box segmenter (not ported yet) and neural '
+                   'baseline segmenter')
+@click.option('-d', '--text-direction', default='horizontal-lr',
+              type=click.Choice(['horizontal-lr', 'horizontal-rl', 'vertical-lr', 'vertical-rl']),
+              help='Sets principal text direction')
+@click.option('--scale', 'legacy_scale', type=float, default=None)
+@click.option('-m', '--maxcolseps', 'legacy_maxcolseps', type=int, default=2)
+@click.option('-b/-w', '--black-colseps/--white-colseps',
+              '--black_colseps/--white_colseps',  # reference spelling
+              'legacy_black_colseps', default=False)
+@click.option('-r/-l', '--remove-hlines/--hlines', 'legacy_no_hlines', default=True)
+@click.option('-p', '--pad', 'bbox_line_padding', type=int, default=0,
+              help='Left and right padding around lines (bbox segmenter only).')
+@click.option('--input-pad', 'input_padding', type=int, default=0,
+              help='Padding to add around the input image.')
+def segment(ctx, model, boxes, text_direction, legacy_scale, legacy_maxcolseps,
+            legacy_black_colseps, legacy_no_hlines, bbox_line_padding, input_padding):
+    """
+    Segments page images into text lines.
+    """
+    from kraken_tpu_torch.configs import SegmentationInferenceConfig
+
+    if boxes:
+        raise not_ported('The legacy box segmenter (segment -x, the default; pass -bl '
+                         'for the neural baseline segmenter)', '8')
+    config = SegmentationInferenceConfig(text_direction=text_direction,
+                                         legacy_scale=legacy_scale,
+                                         legacy_maxcolseps=legacy_maxcolseps,
+                                         legacy_black_colseps=legacy_black_colseps,
+                                         legacy_no_hlines=legacy_no_hlines,
+                                         bbox_line_padding=bbox_line_padding,
+                                         input_padding=input_padding,
+                                         device=ctx.meta['device'],
+                                         precision=ctx.meta['precision'],
+                                         raise_on_error=ctx.meta['raise_failed'])
+    from kraken_tpu_torch.tasks import SegmentationTaskModel
+    if not model and not SEGMENTATION_DEFAULT_MODEL.exists():
+        raise click.UsageError(
+            'No segmentation model given (-i) and no packaged default '
+            '(blla.safetensors / blla.mlmodel) found in this build.')
+    paths = list(model) or [SEGMENTATION_DEFAULT_MODEL]
+    models = []
+    from kraken_tpu_torch.models import load_models
+    for p in paths:
+        message(f'Loading ANN {p}\t', nl=False)
+        try:
+            models.extend(load_models(p))
+        except Exception:
+            if ctx.meta['raise_failed']:
+                raise
+            message('✗', fg='red')
+            ctx.exit(1)
+        message('✓', fg='green')
+    task_model = SegmentationTaskModel(models)
+    ctx.meta['steps'].append({'category': 'processing',
+                              'description': 'Baseline and region segmentation',
+                              'settings': {'model': [str(p) for p in paths],
+                                           'text_direction': text_direction}})
+    ctx.meta['text_direction'] = ('horizontal-tb' if text_direction.startswith('horizontal')
+                                  else 'vertical-lr')
+    return partial(segmenter, task_model, config)
+
+
+@cli.command('ocr')
+@click.pass_context
+@click.option('-m', '--model', default='', show_default=True,
+              help='Path to recognition model weights.')
+@click.option('-B', '--batch-size', default=1, type=int,
+              help='Number of lines per forward pass batch.')
+@click.option('-p', '--pad', default=16, type=int,
+              help='Left and right padding around lines')
+@click.option('-t', '--temperature', default=1.0, type=float,
+              help='Softmax temperature')
+@click.option('--num-line-workers', default=2, type=int,
+              help='Number of line extraction workers. 0 for in-process extraction.')
+@click.option('-n', '--reorder/--no-reorder', default=True,
+              help='Reorder code points to logical order in output.')
+@click.option('--base-dir', default='auto', type=click.Choice(['L', 'R', 'auto']),
+              help='Set base text direction for BiDi reordering.')
+@click.option('-s', '--no-segmentation', default=False, is_flag=True,
+              help='Treat each input image as a whole line.')
+@click.option('-d', '--text-direction', default='horizontal-tb',
+              type=click.Choice(['horizontal-tb', 'vertical-lr', 'vertical-rl']),
+              help='Principal text direction in serialization output')
+@click.option('--no-legacy-polygons', is_flag=True, default=False,
+              help='Force disable the legacy polygon extractor')
+@click.option('--linetype', default=None, type=click.Choice(['baselines', 'bbox']),
+              help='Forces the line type used when parsing XML input.')
+@click.option('--decoder', default='greedy', type=click.Choice(['greedy', 'beam']),
+              help='CTC decoding strategy.')
+@click.option('--beam-size', default=3, type=int,
+              help='Beam width for the beam decoder.')
+def ocr(ctx, model, batch_size, pad, temperature, num_line_workers, reorder, base_dir,
+        no_segmentation, text_direction, no_legacy_polygons, linetype, decoder, beam_size):
+    """
+    Recognizes text in line images.
+    """
+    from kraken_tpu_torch.configs import RecognitionInferenceConfig
+    from kraken_tpu_torch.tasks import RecognitionTaskModel
+
+    if not model:
+        raise click.UsageError('No model given for recognition (-m).')
+    message(f'Loading ANN {model}\t', nl=False)
+    try:
+        task_model = RecognitionTaskModel.load_model(model)
+    except Exception:
+        if ctx.meta['raise_failed']:
+            raise
+        message('✗', fg='red')
+        ctx.exit(1)
+    message('✓', fg='green')
+
+    # the serializers' writing mode: the segmenter's when `segment` ran
+    # before, else this option (the JAX CLI sets it in `segment` only, so
+    # its `-f xml ... ocr` to a serialized format fails on the missing key)
+    ctx.meta.setdefault('text_direction', text_direction)
+    bidi = (base_dir if base_dir != 'auto' else True) if reorder else False
+    decoder_kwargs = {}
+    if decoder == 'beam':
+        from kraken_tpu_torch.ops.ctc import beam_decoder
+        decoder_kwargs['decoder'] = partial(beam_decoder, beam_size=beam_size)
+    config = RecognitionInferenceConfig(**decoder_kwargs,
+                                        batch_size=batch_size,
+                                        padding=pad,
+                                        temperature=temperature,
+                                        num_line_workers=num_line_workers,
+                                        bidi_reordering=bidi,
+                                        text_direction=text_direction,
+                                        no_legacy_polygons=no_legacy_polygons,
+                                        device=ctx.meta['device'],
+                                        precision=ctx.meta['precision'],
+                                        raise_on_error=ctx.meta['raise_failed'])
+    return partial(recognizer, task_model, no_segmentation, config, linetype)
+
+
+@cli.command('show')
+@click.pass_context
+@click.argument('model_id')
+def show(ctx, model_id):
+    """
+    Displays the metadata embedded in a local model file (the model
+    repository is not ported).
+    """
+    if not os.path.isfile(model_id):
+        raise click.UsageError(f'{model_id} is not a local model file; kraken_tpu_torch '
+                               'does not query the model repository.')
+    from kraken_tpu_torch.models import load_models
+    from kraken_tpu_torch.lib.util import make_printable
+    for m in load_models(model_id):
+        message(f'model class: {type(m).__name__}')
+        message(f'model type: {", ".join(m.model_type or ["unknown"])}')
+        message(f'spec: {m.spec}')
+        if m.seg_type:
+            message(f'segmentation type: {m.seg_type}')
+        if m.one_channel_mode:
+            message(f'one channel mode: {m.one_channel_mode}')
+        if getattr(m, 'codec', None) is not None:
+            chars = sorted(m.codec.c2l)
+            message('alphabet: ' + ' '.join(make_printable(c) for c in chars))
+        metrics = m.user_metadata.get('accuracy') or m.user_metadata.get('metrics')
+        if metrics:
+            last = metrics[-1]
+            message(f'metrics (epoch {last[0]}): ' +
+                    ' '.join(f'{k}={v:.4f}' for k, v in last[1].items()
+                             if isinstance(v, (int, float))))
+
+
+if __name__ == '__main__':
+    cli()

@@ -5,6 +5,8 @@ kraken_tpu_torch.lib.util
 PIL/numpy helpers (reference: kraken/lib/util.py), copied from the JAX
 package's ``lib/util.py``. PIL is imported where it is used.
 """
+import unicodedata
+from os import PathLike
 from pathlib import Path
 from typing import TYPE_CHECKING, Union
 
@@ -13,8 +15,8 @@ import numpy as np
 if TYPE_CHECKING:
     from PIL import Image
 
-__all__ = ['pil2array', 'array2pil', 'is_bitonal', 'get_im_str',
-           'default_segmentation_model']
+__all__ = ['pil2array', 'array2pil', 'is_bitonal', 'open_image', 'get_im_str',
+           'is_printable', 'make_printable', 'default_segmentation_model']
 
 
 def default_segmentation_model() -> Path:
@@ -25,6 +27,16 @@ def default_segmentation_model() -> Path:
     pkg = Path(__file__).resolve().parent.parent
     coreml = pkg / 'blla.mlmodel'
     return coreml if coreml.exists() else pkg / 'blla.safetensors'
+
+
+def open_image(fname: Union[str, PathLike], mode=None) -> 'Image.Image':
+    """Opens an image file applying EXIF orientation."""
+    from PIL import Image, ImageOps
+    im = Image.open(fname)
+    im = ImageOps.exif_transpose(im)
+    if mode:
+        im = im.convert(mode)
+    return im
 
 
 def get_im_str(im: 'Image.Image') -> str:
@@ -57,3 +69,33 @@ def is_bitonal(im: Union['Image.Image', np.ndarray]) -> bool:
     if isinstance(im, np.ndarray):
         return len(np.unique(im)) == 2
     return im.getcolors(2) is not None and len(im.getcolors(2)) == 2
+
+
+def is_printable(char: str) -> bool:
+    """
+    True when a code point renders on its own: control, combining-mark, and
+    non-space separator characters (which `kraken show` lists by Unicode
+    name instead) are not printable. Reference: kraken/lib/util.py:57.
+    """
+    if not char:
+        return False
+    if char == ' ':
+        return True
+    return unicodedata.category(char)[0] not in ('C', 'M', 'Z')
+
+
+def make_printable(char: str) -> str:
+    """
+    Returns a printable representation of a code point: control and combining
+    characters are replaced by their Unicode names.
+    """
+    if not char:
+        return ''
+    if len(char) > 1:
+        return ''.join(make_printable(c) for c in char)
+    if unicodedata.category(char)[0] in ('C', 'M', 'Z') and char != ' ':
+        try:
+            return unicodedata.name(char)
+        except ValueError:
+            return f'U+{ord(char):04X}'
+    return char

@@ -387,3 +387,53 @@ def test_segmentation_main_path_launches(cuda_device, precision):
     assert group_norm.design_launches['cluster'] == before_cluster + 5
     assert native.available()
     assert len(seg.lines) > 30 and all(len(line.boundary) >= 3 for line in seg.lines)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('layout', ['frames', 'contiguous'])
+@pytest.mark.parametrize('with_probs', [True, False])
+@pytest.mark.parametrize('temperature', [1.0, 0.7])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('N, C, W', [(1, 2, 1), (1, 250, 31), (64, 2, 33), (64, 250, 128)])
+def test_recognition_tail_kernel_matches_plain(cuda_device, N, C, W, dtype, temperature,
+                                               with_probs, layout):
+    """The tail kernel against its plain version on the same logits, laid
+    out as the network leaves them (a view of (N, W, C)) or contiguous:
+    probabilities and confidences within 1e-6 (both sum in fp64, in
+    another order), labels equal except where the plain version's top two
+    probabilities are within 1e-6 relative of each other (a near-tie)."""
+    from kraken_tpu_torch.ops.tail import recognition_tail, recognition_tail_reference
+    gen = torch.Generator(device=cuda_device).manual_seed(N * C + W)
+    if layout == 'frames':
+        x = (4 * torch.randn(N, W, C, generator=gen, device=cuda_device)).to(dtype)
+        x = x.permute(0, 2, 1).unsqueeze(2)
+    else:
+        x = (4 * torch.randn(N, C, 1, W, generator=gen, device=cuda_device)).to(dtype)
+    before = recognition_tail.launches
+    probs, labels, confs = recognition_tail(x, temperature, probs=with_probs)
+    torch.cuda.synchronize()
+    assert recognition_tail.launches == before + 1
+    ref_probs, ref_labels, ref_confs = recognition_tail_reference(x, temperature)
+    assert labels.dtype == torch.int64 and confs.dtype == torch.float32
+    assert (confs - ref_confs).abs().max().item() <= 1e-6
+    if with_probs:
+        assert (probs - ref_probs).abs().max().item() <= 1e-6
+    else:
+        assert probs is None
+    top = ref_probs.topk(min(2, C), dim=1).values
+    near_tie = (top[:, 0] - top[:, -1]) <= 1e-6 * top[:, 0] if C > 1 else \
+        torch.zeros_like(ref_labels, dtype=torch.bool)
+    assert torch.equal(labels[~near_tie], ref_labels[~near_tie])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('bad', ['dtype', 'shape', 'temperature'])
+def test_recognition_tail_wrapper_raises(cuda_device, bad):
+    from kraken_tpu_torch.ops.tail import recognition_tail
+    x = torch.randn(2, 5, 1, 7, device=cuda_device)
+    if bad == 'dtype':
+        x = x.double()
+    elif bad == 'shape':
+        x = torch.randn(2, 5, 2, 7, device=cuda_device)
+    with pytest.raises((TypeError, ValueError)):
+        recognition_tail(x, 0.0 if bad == 'temperature' else 1.0)

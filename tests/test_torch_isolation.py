@@ -48,6 +48,17 @@ assert len(SegmentationTaskModel.load_model().predict(
     page, SegmentationInferenceConfig(device='cpu')).lines) > 10
 assert blla.segment(page, device='cpu').type == 'baselines'
 assert native.available()
+import os, tempfile
+from kraken_tpu_torch.kraken import cli
+from kraken_tpu_torch.pipeline import process_pages
+out = os.path.join(tempfile.mkdtemp(), 'page.xml')
+cli.main(['-d', 'cpu', '-a', '-i', res + '/170025120000003,0074.jpg', out, 'segment', '-bl',
+          'ocr', '-m', res + '/overfit_bl.safetensors'], standalone_mode=False)
+assert open(out, encoding='utf-8').read().count('<TextLine') > 40
+seg_model = SegmentationTaskModel.load_model()
+pages = list(process_pages([page, page], vmodel, lambda im: seg_model.predict(
+    im, SegmentationInferenceConfig(device='cpu'))))
+assert len(pages) == 2 and all(len(recs) == len(seg.lines) > 10 for _, seg, recs in pages)
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'kraken_tpu'))
 print('FORBIDDEN', bad)
@@ -55,10 +66,10 @@ print('FORBIDDEN', bad)
 
 
 def test_port_runs_without_jax_or_kraken_tpu(resources):
-    """A fresh interpreter runs the port's recognition forward and engine
-    and its segmentation (the task model and the legacy ``blla.segment``)
-    on the CPU and never imports JAX or kraken_tpu (the test process itself
-    has JAX)."""
+    """A fresh interpreter runs the port's recognition forward and engine,
+    its segmentation (the task model and the legacy ``blla.segment``), its
+    CLI (``segment -bl ocr`` to ALTO) and its page pipeline on the CPU and
+    never imports JAX or kraken_tpu (the test process itself has JAX)."""
     out = subprocess.run([sys.executable, '-c', _CHILD, str(resources)], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
