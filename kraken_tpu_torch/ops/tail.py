@@ -12,6 +12,11 @@ of ``csrc/tail.cu`` or raises; on a CPU tensor it runs
 :func:`recognition_tail_reference`, the plain PyTorch version. The kernel
 writes the full (N, C, W) posteriors only when they are asked for; the
 greedy decoder needs the (N, W) labels and confidences alone.
+
+:func:`plan` mirrors in plain Python the launch the kernel takes (a tile
+of F frames a block, a warp a frame; or, for codecs too large for an
+8-frame tile in shared memory, the direct route); :func:`geometry` asks the
+kernel source itself.
 """
 import ctypes
 import functools
@@ -22,7 +27,19 @@ import torch
 
 from kraken_tpu_torch.ops.build import DTYPE_CODES, raw_stream
 
-__all__ = ['recognition_tail', 'recognition_tail_reference']
+__all__ = ['recognition_tail', 'recognition_tail_reference', 'plan', 'geometry', 'MAX_TILE_C']
+
+# the kernel's launch (csrc/tail.cu): blocks of WARPS warps; a "tile" block
+# takes F of FRAMES consecutive frames of a line and shared memory for them
+# as fp32 with the row stride C rounded up to odd, F the largest that leaves
+# room for two blocks an SM (233,472 bytes an SM on an H100, 1 KB reserved
+# for each block); a "direct" block takes WARPS frames, a warp each
+WARPS = 16
+THREADS = 32 * WARPS
+FRAMES = (32, 16, 8)
+SMEM_TWO_BLOCKS = 233472 // 2 - 1024
+# the largest C an 8-frame tile takes: 8 * (C | 1) * 4 <= SMEM_TWO_BLOCKS
+MAX_TILE_C = 3615
 
 
 def recognition_tail_reference(logits: torch.Tensor, temperature: float
@@ -48,6 +65,37 @@ def recognition_tail_reference(logits: torch.Tensor, temperature: float
     e = torch.exp(v - v.amax(dim=1, keepdim=True))
     probs = (e / e.sum(dim=1, keepdim=True, dtype=torch.float64).to(torch.float32)).squeeze(2)
     return probs, probs.argmax(dim=1), probs.amax(dim=1)
+
+
+def plan(N: int, C: int, W: int) -> tuple[str, int, int, int, int]:
+    """
+    The launch the kernel takes for (N, C, 1, W) logits of any type, as
+    ``csrc/tail.cu`` computes it: (route, frames a block, threads a block,
+    dynamic shared memory bytes a block, blocks). On the "tile" route block
+    b takes frames ``(b % tiles) * F`` to ``+ F`` of line ``b // tiles``,
+    ``tiles = ceil(W / F)``; on the "direct" route block b takes the
+    flattened frames ``b * WARPS`` to ``+ WARPS`` (frame ``n * W + w``).
+    """
+    cp = C | 1
+    for f in FRAMES:
+        if f * cp * 4 <= SMEM_TWO_BLOCKS:
+            return 'tile', f, THREADS, f * cp * 4, N * -(-W // f)
+    return 'direct', WARPS, THREADS, 0, -(-(N * W) // WARPS)
+
+
+def geometry(N: int, C: int, W: int) -> tuple[str, int, int, int, int]:
+    """:func:`plan` as the kernel source answers it (``tail_geometry``).
+    Builds the kernel library; needs no card."""
+    from kraken_tpu_torch.ops.build import load_library
+    fn = load_library('tail').tail_geometry
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4 \
+        + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int() for _ in range(4)] + [ctypes.c_longlong()]
+    if fn(N, C, W, *map(ctypes.byref, out)) != 0:
+        raise ValueError(f'tail_geometry refused N={N} C={C} W={W}')
+    route, frames, threads, smem, blocks = (v.value for v in out)
+    return ('tile', 'direct')[route], frames, threads, smem, blocks
 
 
 @functools.lru_cache(maxsize=None)

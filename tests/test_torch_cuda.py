@@ -389,26 +389,62 @@ def test_segmentation_main_path_launches(cuda_device, precision):
     assert len(seg.lines) > 30 and all(len(line.boundary) >= 3 for line in seg.lines)
 
 
+def tail_tie_logits(N: int, C: int, W: int, seed: int) -> np.ndarray:
+    """Seeded logits with exact ties, as tests/test_torch_tail.py:logits
+    makes them: a frame of equal logits, two equal maxima, a maximum
+    repeated at the last class."""
+    x = np.random.default_rng(seed).normal(0, 4, (N, C, 1, W)).astype(np.float32)
+    x[0, :, 0, 0] = 1.5
+    x[0, 3, 0, 1] = x[0, 7 % C, 0, 1] = x[0, :, 0, 1].max() + 1
+    x[-1, C - 1, 0, -1] = x[-1, 0, 0, -1] = x[-1, :, 0, -1].max() + 2
+    return x
+
+
+def tail_layout(x: torch.Tensor, layout: str) -> torch.Tensor:
+    """The contiguous (N, C, 1, W) logits `x` with the same values as the
+    network leaves them (a view of (N, W, C)), contiguous, or either of
+    them sliced along W (every other frame of a buffer twice as wide)."""
+    N, C, _, W = x.shape
+    step = 2 if layout.endswith('sliced') else 1
+    if layout.startswith('frames'):
+        buf = x.new_zeros((N, step * W, C))
+        buf[:, ::step] = x[:, :, 0].transpose(1, 2)
+        y = buf.transpose(1, 2).unsqueeze(2)
+    else:
+        y = x.new_zeros((N, C, 1, step * W))
+        y[..., ::step] = x
+    return y[..., ::step]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('layout', ['frames', 'contiguous'])
+@pytest.mark.parametrize('layout', ['frames', 'contiguous', 'frames_sliced', 'contiguous_sliced'])
 @pytest.mark.parametrize('with_probs', [True, False])
 @pytest.mark.parametrize('temperature', [1.0, 0.7])
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('N, C, W', [(1, 2, 1), (1, 250, 31), (64, 2, 33), (64, 250, 128)])
-def test_recognition_tail_kernel_matches_plain(cuda_device, N, C, W, dtype, temperature,
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('N, C, W, ties', [
+    (1, 2, 1, False), (1, 250, 31, False), (64, 2, 33, False), (64, 250, 128, False),
+    (64, 250, 1, False),     # W = 1 with N = 64
+    (4, 250, 100, False),    # W not a multiple of the 32-frame tile
+    (3, 1, 45, False), (5, 33, 70, False), (4, 97, 100, False),
+    (3, 1000, 77, False),    # 16-frame tiles, W not a multiple of 16
+    (2, 4000, 45, False),    # the direct route (a warp a frame from device memory)
+    (2, 20, 33, True), (4, 250, 128, True), (2, 4000, 9, True)])  # exact ties
+def test_recognition_tail_kernel_matches_plain(cuda_device, N, C, W, ties, dtype, temperature,
                                                with_probs, layout):
     """The tail kernel against its plain version on the same logits, laid
-    out as the network leaves them (a view of (N, W, C)) or contiguous:
-    probabilities and confidences within 1e-6 (both sum in fp64, in
-    another order), labels equal except where the plain version's top two
-    probabilities are within 1e-6 relative of each other (a near-tie)."""
+    out as the network leaves them (a view of (N, W, C)), contiguous or
+    sliced along W: probabilities and confidences within 1e-6 (both sum in
+    fp64, in another order), labels equal except where the plain version's
+    top two probabilities are within 1e-6 relative of each other (a
+    near-tie); on logits with exact ties every label equal (the first
+    maximal class wins)."""
     from kraken_tpu_torch.ops.tail import recognition_tail, recognition_tail_reference
-    gen = torch.Generator(device=cuda_device).manual_seed(N * C + W)
-    if layout == 'frames':
-        x = (4 * torch.randn(N, W, C, generator=gen, device=cuda_device)).to(dtype)
-        x = x.permute(0, 2, 1).unsqueeze(2)
+    if ties:
+        x = torch.from_numpy(tail_tie_logits(N, C, W, seed=N * 1000 + W)).to(cuda_device, dtype)
     else:
+        gen = torch.Generator(device=cuda_device).manual_seed(N * C + W)
         x = (4 * torch.randn(N, C, 1, W, generator=gen, device=cuda_device)).to(dtype)
+    x = tail_layout(x, layout)
     before = recognition_tail.launches
     probs, labels, confs = recognition_tail(x, temperature, probs=with_probs)
     torch.cuda.synchronize()
@@ -421,9 +457,22 @@ def test_recognition_tail_kernel_matches_plain(cuda_device, N, C, W, dtype, temp
     else:
         assert probs is None
     top = ref_probs.topk(min(2, C), dim=1).values
-    near_tie = (top[:, 0] - top[:, -1]) <= 1e-6 * top[:, 0] if C > 1 else \
+    near_tie = (top[:, 0] - top[:, -1]) <= 1e-6 * top[:, 0] if C > 1 and not ties else \
         torch.zeros_like(ref_labels, dtype=torch.bool)
     assert torch.equal(labels[~near_tie], ref_labels[~near_tie])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('N, C, W', [
+    (64, 250, 128), (16, 250, 800), (64, 250, 1), (3, 1, 45), (3, 903, 40), (3, 904, 40),
+    (3, 1807, 17), (3, 1808, 17), (2, 3615, 9), (2, 3616, 9), (2, 4000, 45), (1, 20000, 3)])
+def test_tail_geometry_matches_its_mirror(cuda_device, N, C, W):
+    """The launch that ops/tail.py plans with is what the kernel source
+    computes, and a tile's shared memory leaves room for two blocks an SM."""
+    from kraken_tpu_torch.ops.tail import geometry, plan
+    assert geometry(N, C, W) == plan(N, C, W)
+    props = torch.cuda.get_device_properties(cuda_device)
+    assert 2 * (plan(N, C, W)[3] + 1024) <= props.shared_memory_per_multiprocessor
 
 
 @pytest.mark.cuda

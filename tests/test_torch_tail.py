@@ -51,7 +51,8 @@ def logits(N: int, C: int, W: int, seed: int, ties: bool = False) -> np.ndarray:
 
 @pytest.mark.parametrize('temperature', [1.0, 0.7])
 @pytest.mark.parametrize('N, C, W, ties', [(1, 2, 1, False), (3, 250, 31, False),
-                                           (2, 20, 33, True), (4, 250, 128, True)])
+                                           (2, 20, 33, True), (4, 250, 128, True),
+                                           (2, 4000, 9, True)])
 def test_plain_version_equals_jax(jax_tail, N, C, W, ties, temperature):
     x = logits(N, C, W, seed=N * 1000 + W, ties=ties)
     olens = np.full((N,), W, np.int32)
