@@ -10,7 +10,9 @@ from a given segmentation (``rpred``, ``mm_rpred``, ``RecognitionTaskModel``,
 ``VGSLModel.predict`` on a segmentation model, ``blla.segment``), the two
 joined by the streaming page pipeline (``pipeline.process_pages``) and the
 ``kraken`` inference CLI (``python -m kraken_tpu_torch.kraken``) with its
-ALTO/PageXML reader and serializers. Entry points run on the card
+ALTO/PageXML reader and serializers. It also covers forced alignment
+(``ForcedAlignmentTaskModel``) and neural reading order (``ro.ROMLP``
+inside ``SegmentationTaskModel``). Entry points run on the card
 (``device='cuda'``) unless the caller asks for the CPU.
 """
 from kraken_tpu_torch.tasks.recognition import RecognitionTaskModel

@@ -452,10 +452,15 @@ def show(ctx, model_id):
     for m in load_models(model_id):
         message(f'model class: {type(m).__name__}')
         message(f'model type: {", ".join(m.model_type or ["unknown"])}')
-        message(f'spec: {m.spec}')
-        if m.seg_type:
+        if hasattr(m, 'spec'):
+            message(f'spec: {m.spec}')
+        else:
+            # a reading-order model has no VGSL spec (the JAX CLI stops on it)
+            message(f'level: {m.level}')
+            message('class mapping: ' + ' '.join(f'{k}={v}' for k, v in m.class_mapping.items()))
+        if getattr(m, 'seg_type', None):
             message(f'segmentation type: {m.seg_type}')
-        if m.one_channel_mode:
+        if getattr(m, 'one_channel_mode', None):
             message(f'one channel mode: {m.one_channel_mode}')
         if getattr(m, 'codec', None) is not None:
             chars = sorted(m.codec.c2l)

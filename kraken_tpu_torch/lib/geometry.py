@@ -5,10 +5,11 @@ kraken_tpu_torch.lib.geometry
 Host-side polygon/baseline geometry: polygon sections for per-character
 cuts, polygonal line-image extraction (straight-line rotation fast path,
 piecewise mesh warp, legacy Delaunay warp), point/polygon predicates,
-heuristic reading order and coordinate scaling. A copy of the matching part of the JAX package's
-``lib/geometry.py`` (the port imports nothing of that package), on
-numpy/PIL/OpenCV/scipy only. PIL and OpenCV are imported where they are
-used, so the module imports without them.
+heuristic and neural reading order and coordinate scaling. A copy of the
+matching part of the JAX package's ``lib/geometry.py`` (the port imports
+nothing of that package), on numpy/PIL/OpenCV/scipy, and torch for the
+forward of a reading-order model. PIL, OpenCV and torch are imported where
+they are used, so the module imports without them.
 """
 import logging
 from typing import TYPE_CHECKING, Literal, Optional, Sequence, Union
@@ -22,7 +23,8 @@ logger = logging.getLogger(__name__)
 
 __all__ = ['compute_polygon_section', 'precompute_polygon_sections',
            'extract_polygons', 'reading_order', 'topsort',
-           'polygonal_reading_order', 'is_in_region', 'point_in_polygon',
+           'polygonal_reading_order', 'neural_reading_order', 'pair_probabilities',
+           'greedy_order_decode', 'is_in_region', 'point_in_polygon',
            'points_in_polygon', 'line_midpoint', 'scale_regions',
            'scale_polygonal_lines']
 
@@ -842,6 +844,78 @@ def polygonal_reading_order(lines: Sequence, text_direction: Literal['lr', 'rl']
         else:
             out.extend(intra[val])
     return out
+
+
+def pair_probabilities(lines: Sequence, im_size: tuple[int, int], model,
+                       class_mapping: Optional[dict[str, int]] = None) -> np.ndarray:
+    """
+    The order probabilities a reading-order model (ROMLP) gives every
+    ordered pair (i, j), i != j, of `lines` (in row-major order): spatial
+    features on the host, the model's forward on its device (float32, no
+    TF32), the sigmoid on the host.
+    """
+    import torch
+    from kraken_tpu_torch.inference.recognition import _precise_fp32
+    from kraken_tpu_torch.ro.features import element_features
+
+    if class_mapping is None:
+        class_mapping = {}
+    num_classes = (max(0, *class_mapping.values()) + 1) if class_mapping else 1
+    feats = [element_features(el, im_size, class_mapping, num_classes)[1] for el in lines]
+    pairs = []
+    n = len(lines)
+    for i in range(n):
+        for j in range(n):
+            if i == j and n != 1:
+                continue
+            pairs.append(np.concatenate([feats[i], feats[j]]))
+    with torch.inference_mode(), _precise_fp32(torch.float32):
+        logits = model.forward(np.stack(pairs)).cpu().numpy()
+    return (1 / (1 + np.exp(-logits))).ravel()
+
+
+def neural_reading_order(lines: Sequence, text_direction: str = 'lr',
+                         regions: Optional[Sequence] = None,
+                         im_size: tuple[int, int] = None,
+                         model=None,
+                         class_mapping: dict[str, int] = None) -> Optional[Sequence[int]]:
+    """
+    Orders lines with a trained pairwise order-relation model (ROMLP): builds
+    per-element spatial features, scores all ordered pairs, and greedily
+    decodes the order-relation matrix.
+    """
+    if len(lines) == 0:
+        return None
+    if len(lines) == 1:
+        return [0]
+    n = len(lines)
+    order = np.zeros((n, n))
+    order[~np.eye(n, dtype=bool)] = pair_probabilities(lines, im_size, model, class_mapping)
+    return greedy_order_decode(order)
+
+
+def greedy_order_decode(P: np.ndarray) -> list[int]:
+    """
+    Greedy decode of a pairwise order-relation probability matrix: at each
+    step pick the element maximizing the joint log-probability of preceding
+    all remaining elements.
+    """
+    A = P + _EPS
+    A = (A + (1 - A).T) / 2
+    np.fill_diagonal(A, _EPS)
+    lP = np.log(A)
+    np.fill_diagonal(lP, 0)
+    n = P.shape[0]
+    path: list[int] = []
+    for _ in range(n):
+        for _ in range(n):
+            idx = int(np.argmax(lP.sum(axis=1)))
+            if idx not in path:
+                path.append(idx)
+                lP[idx, :] = lP[:, idx]
+                lP[:, idx] = 0
+                break
+    return path
 
 
 # ------------------------------------------------------------------ scaling

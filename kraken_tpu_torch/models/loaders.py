@@ -9,8 +9,8 @@ port's own reader, :mod:`kraken_tpu_torch.models._safetensors`), and
 CoreML .mlmodel protobufs (:mod:`kraken_tpu_torch.models._coreml`).
 
 Models are built on the CPU in float32; ``prepare_for_inference`` places
-them. Auxiliary reading-order layers of CoreML files are skipped: reading
-order is a later slice of the port.
+them. A file may hold reading-order models (``ROMLP``): under their own
+prefix in safetensors, as auxiliary layers (``aux_layers``) in CoreML.
 """
 import json
 import logging
@@ -145,11 +145,12 @@ def load_safetensors(path: Union[str, PathLike], tasks: Optional[Sequence[_T_tas
 
 def load_coreml(path: Union[str, PathLike], tasks: Optional[Sequence[_T_tasks]] = None) -> list:
     """
-    Loads a model from a kraken CoreML .mlmodel file.
+    Loads the models of a kraken CoreML .mlmodel file: its network and the
+    reading-order models of its auxiliary layers.
 
     Metadata lives in the protobuf's user-defined metadata dict (`vgsl`,
-    `codec`, `kraken_meta`); weights are extracted from the neural network
-    layer messages (convolution/innerProduct/LSTM/custom).
+    `codec`, `kraken_meta`, `aux_layers`); weights are extracted from the
+    neural network layer messages (convolution/innerProduct/LSTM/custom).
     """
     from kraken_tpu_torch.models import _coreml
 
@@ -196,7 +197,23 @@ def load_coreml(path: Union[str, PathLike], tasks: Optional[Sequence[_T_tasks]] 
         model.load_state_dict(weights, prefix='nn.')
     except Exception as e:
         raise ValueError(f'CoreML weight import failed for {path}: {e}') from e
+    models = [model]
+
     if 'aux_layers' in user_meta:
-        logger.warning(f'Skipping the auxiliary reading-order layers of {path}: '
-                       'reading order is not ported to kraken_tpu_torch yet.')
-    return [model]
+        logger.info('Importing auxiliary (reading order) layers.')
+        for name in json.loads(user_meta['aux_layers']).keys():
+            if name == 'ro_model':
+                level = 'baselines'
+            elif name == 'ro_model_regions':
+                level = 'regions'
+            else:
+                logger.warning(f'Unrecognized auxiliary layer key {name}, skipping.')
+                continue
+            class_mapping = model.user_metadata.get('class_mapping', {}).get(level, {})
+            try:
+                romlp = create_model('ROMLP', class_mapping=class_mapping, level=level)
+                romlp.load_coreml_weights(name, spec)
+                models.append(romlp)
+            except Exception as e:
+                logger.warning(f'Failed to load auxiliary layer {name}: {e}')
+    return models

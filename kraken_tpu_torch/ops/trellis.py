@@ -1,0 +1,199 @@
+"""
+kraken_tpu_torch.ops.trellis
+~~~~~~~~~~~~~~~~~~~~~~~~~~~~
+
+The CTC forced-alignment trellis, batched over the lines of a page: the
+port of the JAX package's ``align.py:get_trellis_device`` (a ``lax.scan``
+over frames there), equal bit for bit to its numpy ``get_trellis``.
+
+For line n with ``T_n`` frames, ``L_n >= 1`` tokens, emission ``E_n``
+(T_n, C) of log-probabilities and tokens ``tok_n`` (L_n,):
+
+- ``tr[0, 0] = 0`` and ``tr[0, 1:] = -inf``;
+- ``tr[1:, 0]`` is the running sum of ``E[:, 0]``, summed frame by frame
+  in fp32 as ``np.cumsum`` sums it, with its last ``L_n`` rows set to
+  ``+inf``;
+- ``tr[t+1, j] = max(tr[t, j] + E[t, 0], tr[t, j-1] + E[t, tok[j-1]])``.
+
+The batch is padded: emission (N, T_max, C) float32, tokens (N, L_max)
+int32, and each line's frame and token counts. The result (N, T_max + 1,
+L_max + 1) holds line n's trellis in its top-left (T_n + 1, L_n + 1) block
+(:func:`blocks` hands back those views); the rest is undefined.
+:func:`pad` builds such a batch from each line's emission and tokens.
+
+On a CUDA tensor :func:`trellis` launches the hand-written kernel of
+``csrc/trellis.cu`` or raises; on a CPU tensor it runs
+:func:`trellis_reference`, the plain PyTorch version.
+"""
+import ctypes
+import functools
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from kraken_tpu_torch.ops.build import raw_stream
+
+__all__ = ['trellis', 'trellis_reference', 'pad', 'blocks', 'MAX_TOKENS']
+
+# a block takes 1024 threads of at most 2 token columns each (csrc/trellis.cu)
+MAX_TOKENS = 1024 * 2 - 1
+
+
+def _check(emission: torch.Tensor, tokens: torch.Tensor, frame_lens: torch.Tensor,
+           token_lens: torch.Tensor) -> None:
+    """Raises on shapes, types and devices the trellis does not take."""
+    if emission.dim() != 3 or tokens.dim() != 2 or tokens.shape[0] != emission.shape[0] \
+            or frame_lens.shape != (emission.shape[0],) or token_lens.shape != (emission.shape[0],):
+        raise ValueError('trellis takes emission (N, T, C), tokens (N, L) and frame and '
+                         f'token counts (N,); got {tuple(emission.shape)}, {tuple(tokens.shape)}, '
+                         f'{tuple(frame_lens.shape)}, {tuple(token_lens.shape)}')
+    if emission.dtype != torch.float32:
+        raise TypeError(f'emission must be float32, not {emission.dtype}')
+    for name, t in (('tokens', tokens), ('frame_lens', frame_lens), ('token_lens', token_lens)):
+        if t.dtype != torch.int32:
+            raise TypeError(f'{name} must be int32, not {t.dtype}')
+        if t.device != emission.device:
+            raise ValueError(f'{name} lies on {t.device}, emission on {emission.device}')
+    if emission.shape[2] < 1 or tokens.shape[1] < 1:
+        raise ValueError('trellis needs at least one class and one token, got '
+                         f'C={emission.shape[2]}, L={tokens.shape[1]}')
+
+
+# what the kernel's error bits and :func:`_check_values` refuse
+_REFUSED = {1: 'frame counts outside [0, T] or token counts outside [1, L]',
+            2: 'tokens outside [0, C)', 4: 'emissions that are not finite'}
+
+
+def _check_values(emission: torch.Tensor, tokens: torch.Tensor, frame_lens: torch.Tensor,
+                  token_lens: torch.Tensor) -> None:
+    """Raises on the values the kernel refuses (its error bits): counts out
+    of range, tokens outside the classes, emissions the recurrence reads
+    (the blank and the line's tokens at its frames) that are not finite
+    (the trellis is defined for log-probabilities; np.maximum and a max by
+    fmaxf would differ on NaN)."""
+    N, T, C = emission.shape
+    frames, lens = frame_lens.tolist(), token_lens.tolist()
+    if not all(0 <= f <= T for f in frames) or not all(1 <= n <= tokens.shape[1] for n in lens):
+        raise ValueError(f'trellis refuses {_REFUSED[1]}')
+    line_tokens = [tokens[n, :L].to(torch.int64) for n, L in enumerate(lens)]
+    if any(((t < 0) | (t >= C)).any() for t in line_tokens):
+        raise ValueError(f'trellis refuses {_REFUSED[2]}')
+    if not all(torch.isfinite(emission[n, :f, 0]).all()
+               and torch.isfinite(emission[n, :f][:, t]).all()
+               for n, (f, t) in enumerate(zip(frames, line_tokens))):
+        raise ValueError(f'trellis refuses {_REFUSED[4]}')
+
+
+def trellis_reference(emission: torch.Tensor, tokens: torch.Tensor,
+                      frame_lens: torch.Tensor, token_lens: torch.Tensor) -> torch.Tensor:
+    """
+    Plain PyTorch version of :func:`trellis`: a loop over frames in
+    fp32, all lines at once, in numpy's order of operations (column 0
+    summed frame by frame), so each line's block equals the numpy
+    ``get_trellis`` bit for bit.
+    """
+    N, T_max, C = emission.shape
+    device = emission.device
+    inf = torch.tensor(float('inf'), device=device)
+    first_inf = (frame_lens.to(torch.int64) + 1 - token_lens.to(torch.int64))
+    blank = emission[:, :, 0]
+    tok_e = torch.gather(emission, 2,
+                         tokens.to(torch.int64)[:, None, :].expand(N, T_max, tokens.shape[1]))
+    out = torch.empty((N, T_max + 1, tokens.shape[1] + 1), dtype=torch.float32, device=device)
+    row = torch.full((N, tokens.shape[1] + 1), float('-inf'), dtype=torch.float32, device=device)
+    row[:, 0] = torch.where(first_inf <= 0, inf, 0.0)
+    out[:, 0] = row
+    acc = torch.zeros(N, dtype=torch.float32, device=device)
+    for t in range(T_max):
+        acc = acc + blank[:, t]
+        new = torch.empty_like(row)
+        new[:, 0] = torch.where(first_inf <= t + 1, inf, acc)
+        new[:, 1:] = torch.maximum(row[:, 1:] + blank[:, t:t + 1], row[:, :-1] + tok_e[:, t])
+        row = new
+        out[:, t + 1] = row
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """The kernel's C entry point, with its argument types (built at first use)."""
+    from kraken_tpu_torch.ops.build import load_library
+    fn = load_library('trellis').trellis_forward
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def trellis(emission: torch.Tensor, tokens: torch.Tensor, frame_lens: torch.Tensor,
+            token_lens: torch.Tensor) -> torch.Tensor:
+    """
+    The trellises of a padded batch of lines (arguments and result as
+    :func:`trellis_reference`).
+
+    On a CPU tensor this is the plain version. On a CUDA tensor it launches
+    the kernel of ``csrc/trellis.cu`` on the current stream, adds one to
+    ``trellis.launches`` and waits for it (the kernel checks each line's
+    counts, tokens and emissions and reports what it refuses). It raises on
+    a type, shape, layout or device the kernel does not take (contiguous
+    tensors), on more than MAX_TOKENS tokens a line, on counts out of range,
+    tokens outside the classes and emissions that are not finite (as the
+    plain version's caller does on the CPU), and when the launch is refused.
+    """
+    _check(emission, tokens, frame_lens, token_lens)
+    device = emission.device
+    if device.type == 'cpu':
+        _check_values(emission, tokens, frame_lens, token_lens)
+        return trellis_reference(emission, tokens, frame_lens, token_lens)
+    if device.type != 'cuda':
+        raise ValueError(f'trellis runs on cpu or cuda tensors, not {device}')
+    if not all(t.is_contiguous() for t in (emission, tokens, frame_lens, token_lens)):
+        raise ValueError('trellis takes contiguous tensors')
+    N, T_max, C = emission.shape
+    L_max = tokens.shape[1]
+    if L_max > MAX_TOKENS:
+        raise ValueError(f'the trellis kernel takes at most {MAX_TOKENS} tokens a line, '
+                         f'not {L_max}')
+    out = torch.empty((N, T_max + 1, L_max + 1), dtype=torch.float32, device=device)
+    if N == 0:
+        return out
+    error = torch.zeros(1, dtype=torch.int32, device=device)
+    err = _kernel()(emission.data_ptr(), tokens.data_ptr(), frame_lens.data_ptr(),
+                    token_lens.data_ptr(), out.data_ptr(), error.data_ptr(), N, T_max, C, L_max,
+                    device.index, raw_stream(device.index))
+    if err != 0:
+        raise RuntimeError(f'trellis kernel launch failed: cudaError {err}')
+    trellis.launches += 1
+    refused = int(error.item())
+    if refused:
+        raise ValueError('trellis refuses ' + ', '.join(v for k, v in _REFUSED.items()
+                                                        if refused & k))
+    return out
+
+
+trellis.launches = 0
+
+
+def pad(emissions: Sequence[np.ndarray], tokens: Sequence[np.ndarray],
+        device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The arguments of :func:`trellis` on `device` for a batch of lines:
+    each line's (frames, classes) emission and its tokens, zero-padded into
+    emission (N, T_max, C_max) float32 and tokens (N, L_max) int32, with
+    each line's frame and token counts."""
+    frames = [e.shape[0] for e in emissions]
+    lens = [len(t) for t in tokens]
+    batch = np.zeros((len(emissions), max(frames), max(e.shape[1] for e in emissions)), np.float32)
+    labels = np.zeros((len(emissions), max(lens)), np.int32)
+    for n, (e, t) in enumerate(zip(emissions, tokens)):
+        batch[n, :e.shape[0], :e.shape[1]] = e
+        labels[n, :len(t)] = t
+    return (torch.from_numpy(batch).to(device), torch.from_numpy(labels).to(device),
+            torch.tensor(frames, dtype=torch.int32, device=device),
+            torch.tensor(lens, dtype=torch.int32, device=device))
+
+
+def blocks(out, frame_lens, token_lens) -> list:
+    """Each line's trellis: views of the top-left (T_n + 1, L_n + 1) blocks
+    of a batch's result (a tensor or its numpy copy)."""
+    return [out[n, :int(T) + 1, :int(L) + 1]
+            for n, (T, L) in enumerate(zip(frame_lens, token_lens))]

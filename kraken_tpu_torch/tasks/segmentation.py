@@ -4,16 +4,18 @@ kraken_tpu_torch.tasks.segmentation
 
 Layout analysis task wrapper (reference: kraken/tasks/segmentation.py), the
 counterpart of the JAX package's ``tasks/segmentation.py``: runs one or
-more segmentation models and merges their outputs (region re-association,
-heuristic reading order). Neural reading-order models are not ported yet
-(ROADMAP.md, queue 1, item 7): a collection holding one raises.
+more segmentation models, merges their outputs (region re-association,
+heuristic reading order), and applies optional neural reading-order models
+at line and region level. The reading-order models run on the device the
+segmentation models were prepared on.
 """
 import logging
+from collections import defaultdict
 from dataclasses import replace
 from typing import TYPE_CHECKING, Optional, Union
 
 from kraken_tpu_torch.containers import BaselineLine, Segmentation
-from kraken_tpu_torch.lib.geometry import is_in_region
+from kraken_tpu_torch.lib.geometry import is_in_region, neural_reading_order
 from kraken_tpu_torch.models import load_models
 
 if TYPE_CHECKING:
@@ -77,6 +79,8 @@ class SegmentationTaskModel:
             logger.info(f'Applying model {net}.')
             net.prepare_for_inference(config)
             segs.append(net.predict(im))
+        for net in self.ro_models:
+            net.prepare_for_inference(config)
         segmentation = self._merge_segmentations(segs, config)
         return self._compute_additional_line_orders(segmentation, config, im_size=im.size)
 
@@ -144,11 +148,88 @@ class SegmentationTaskModel:
                                         config: 'SegmentationInferenceConfig',
                                         im_size=None) -> Segmentation:
         """
-        Would append a neural reading order to `line_orders`; the neural
-        reading-order models are not ported yet, so a collection with one
-        raises.
+        Appends a neural reading order to `line_orders` when RO models are
+        available: region-level model orders regions, line-level model orders
+        lines (within regions when both are present).
         """
         if not self.ro_models:
             return segmentation
-        raise NotImplementedError('neural reading order (reading_order models) is not ported '
-                                  'yet: ROADMAP.md, queue 1, item 7')
+        line_ro = None
+        region_ro = None
+        for model in self.ro_models:
+            if model.user_metadata.get('level', 'baselines') == 'regions':
+                region_ro = model
+            else:
+                line_ro = model
+
+        if not segmentation.lines or not isinstance(segmentation.lines[0], BaselineLine):
+            logger.warning('Neural reading order applies to baselines only; skipping.')
+            return segmentation
+        if im_size is None:
+            logger.warning('Neural reading order needs the page size, which is unavailable.')
+            return segmentation
+
+        seg_class_mapping = self.seg_models[0].user_metadata.get('class_mapping', {})
+
+        def _ro_feature_mapping(ro_model, level):
+            # the one-hot layout of the pair features is fixed by the RO
+            # model's TRAINING-time class mapping — the seg model's mapping
+            # may share its keys yet differ in cardinality (e.g. an extra
+            # 'default' entry, which the compatibility check deliberately
+            # ignores), which would shift every feature dimension
+            return (ro_model.user_metadata.get('class_mapping')
+                    or getattr(ro_model, 'class_mapping', None)
+                    or seg_class_mapping.get(level, {}))
+
+        all_regions = [reg for regs in segmentation.regions.values() for reg in regs]
+
+        if region_ro and all_regions:
+            region_order = neural_reading_order(lines=all_regions, model=region_ro,
+                                                im_size=im_size,
+                                                class_mapping=_ro_feature_mapping(region_ro, 'regions'))
+            ordered_regions = ([all_regions[i] for i in region_order]
+                               if region_order is not None else all_regions)
+        else:
+            ordered_regions = all_regions
+
+        if line_ro:
+            line_cm = _ro_feature_mapping(line_ro, 'baselines')
+            region_ids = {reg.id for reg in ordered_regions}
+            by_region = defaultdict(list)
+            for line in segmentation.lines:
+                key = line.regions[0] if (line.regions and line.regions[0] in region_ids) else None
+                by_region[key].append(line)
+            ordered_lines = []
+            if region_ro and ordered_regions:
+                groups = [by_region.get(reg.id, []) for reg in ordered_regions] + [by_region.get(None, [])]
+                for group in groups:
+                    if len(group) > 1:
+                        lo = neural_reading_order(lines=group, model=line_ro,
+                                                  im_size=im_size, class_mapping=line_cm)
+                        ordered_lines.extend([group[i] for i in lo] if lo is not None else group)
+                    else:
+                        ordered_lines.extend(group)
+            else:
+                lo = neural_reading_order(lines=segmentation.lines, model=line_ro,
+                                          im_size=im_size, class_mapping=line_cm)
+                ordered_lines = ([segmentation.lines[i] for i in lo]
+                                 if lo is not None else list(segmentation.lines))
+        elif region_ro:
+            ordered_lines = []
+            used = set()
+            for region in ordered_regions:
+                for line in segmentation.lines:
+                    if line.regions and line.regions[0] == region.id and id(line) not in used:
+                        ordered_lines.append(line)
+                        used.add(id(line))
+            for line in segmentation.lines:
+                if id(line) not in used:
+                    ordered_lines.append(line)
+        else:
+            return segmentation
+
+        old_to_new = {id(line): idx for idx, line in enumerate(segmentation.lines)}
+        neural_order = [old_to_new[id(line)] for line in ordered_lines]
+        line_orders = list(segmentation.line_orders or [])
+        line_orders.append(neural_order)
+        return replace(segmentation, line_orders=line_orders)

@@ -486,3 +486,133 @@ def test_recognition_tail_wrapper_raises(cuda_device, bad):
         x = torch.randn(2, 5, 2, 7, device=cuda_device)
     with pytest.raises((TypeError, ValueError)):
         recognition_tail(x, 0.0 if bad == 'temperature' else 1.0)
+
+
+def trellis_lines(seed: int, shapes) -> list:
+    """(emission, tokens) per (T, L, C): log-softmax of random softmax
+    outputs, as the alignment task builds them, tokens in [1, C)."""
+    rng = np.random.RandomState(seed)
+    lines = []
+    for T, L, C in shapes:
+        probs = rng.dirichlet(np.ones(C) * 0.3, size=T).astype(np.float32).T
+        shifted = probs - probs.max(axis=0, keepdims=True)
+        emission = (shifted - np.log(np.exp(shifted).sum(axis=0, keepdims=True))).T
+        lines.append((np.ascontiguousarray(emission), rng.randint(1, C, size=L)))
+    return lines
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shapes', [
+    [(1, 1, 7), (40, 1, 3), (16, 8, 50), (3, 5, 9), (300, 150, 300)],
+    [(2100, 1030, 6), (9, 2, 11)],     # 2 columns a thread
+    [(4100, 2047, 4), (5, 1, 2)],      # 2048 columns, the most a block takes
+    [(128, 50, 250)] * 64,             # flagship-like
+], ids=['ragged', 'cols2', 'cols_max', 'flagship'])
+def test_trellis_kernel_equals_plain(cuda_device, shapes):
+    from kraken_tpu_torch.align import get_trellis
+    from kraken_tpu_torch.ops.trellis import blocks, pad, trellis, trellis_reference
+    lines = trellis_lines(len(shapes), shapes)
+    args = pad([e for e, _ in lines], [t for _, t in lines], 'cpu')
+    frames, lens = args[2].tolist(), args[3].tolist()
+    before = trellis.launches
+    out = trellis(*[a.to(cuda_device) for a in args])
+    torch.cuda.synchronize()
+    assert trellis.launches == before + 1
+    ref = trellis_reference(*args)
+    for (e, t), a, b in zip(lines, blocks(out.cpu(), frames, lens), blocks(ref, frames, lens)):
+        assert torch.equal(a, b)
+        if e.shape[0] <= 300:
+            assert np.array_equal(a.numpy(), get_trellis(e, t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('bad', ['nan', 'token_high', 'frames_over', 'no_tokens', 'strided',
+                                 'devices', 'long_line'])
+def test_trellis_wrapper_raises(cuda_device, bad):
+    """Layouts are refused before the launch; counts, tokens and emissions
+    by the kernel, which writes nothing for the line (a launch)."""
+    from kraken_tpu_torch.ops.trellis import trellis
+    e = torch.zeros(2, 6, 5, device=cuda_device)
+    t = torch.ones(2, 3, dtype=torch.int32, device=cuda_device)
+    fl = torch.full((2,), 6, dtype=torch.int32, device=cuda_device)
+    tl = torch.full((2,), 3, dtype=torch.int32, device=cuda_device)
+    launched = 1
+    if bad == 'nan':
+        e[1, 2, 0] = float('nan')
+    elif bad == 'token_high':
+        t[0, 2] = 5
+    elif bad == 'frames_over':
+        fl[1] = 7
+    elif bad == 'no_tokens':
+        tl[0] = 0
+    else:
+        launched = 0
+        if bad == 'strided':
+            e = torch.zeros(6, 2, 5, device=cuda_device).transpose(0, 1)
+        elif bad == 'devices':
+            fl = fl.cpu()
+        else:
+            t = torch.ones(2, 2048, dtype=torch.int32, device=cuda_device)
+    before = trellis.launches
+    with pytest.raises(ValueError):
+        trellis(e, t, fl, tl)
+    assert trellis.launches == before + launched
+
+
+@pytest.mark.cuda
+def test_trellis_kernel_reads_only_the_blank_and_the_tokens(cuda_device):
+    from kraken_tpu_torch.ops.trellis import trellis, trellis_reference
+    e = torch.zeros(1, 6, 5)
+    e[0, :, 2] = float('nan')
+    e[0, :, 4] = float('inf')
+    args = [e, torch.tensor([[1, 3]], dtype=torch.int32), torch.tensor([6], dtype=torch.int32),
+            torch.tensor([2], dtype=torch.int32)]
+    out = trellis(*[a.to(cuda_device) for a in args]).cpu()
+    assert torch.equal(out, trellis_reference(*args))
+
+
+@pytest.mark.cuda
+def test_alignment_on_the_card_equals_the_cpu(cuda_device):
+    """The fixture page's transcriptions aligned through overfit_bl on the
+    card and on the CPU: the same records, one trellis launch a predict."""
+    import json
+    from PIL import Image
+    from kraken_tpu_torch.configs import RecognitionInferenceConfig
+    from kraken_tpu_torch.containers import Segmentation
+    from kraken_tpu_torch.ops.trellis import trellis
+    from kraken_tpu_torch.tasks import ForcedAlignmentTaskModel
+    page = json.loads((RESOURCES / 'torch_align_page.json').read_text(encoding='utf-8'))
+    im = Image.open(RESOURCES / '170025120000003,0074.jpg')
+    task = ForcedAlignmentTaskModel.load_model(RESOURCES / 'overfit_bl.safetensors')
+    before = trellis.launches
+    card = task.predict(im, Segmentation(**page), RecognitionInferenceConfig())
+    assert trellis.launches == before + 1 and task.net.device.type == 'cuda'
+    cpu = task.predict(im, Segmentation(**page), RecognitionInferenceConfig(device='cpu'))
+    assert trellis.launches == before + 1
+    assert sum(bool(r.prediction) for r in card.lines) > 40
+    for a, b in zip(card.lines, cpu.lines):
+        assert (a.prediction, a.cuts) == (b.prediction, b.cuts)
+        np.testing.assert_allclose(a.confidences, b.confidences, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_reading_order_on_the_card_equals_the_golden(cuda_device):
+    """The fixture page through the shipped segmenter and the reading-order
+    fixture on the card: the reading-order model on the card, the JAX
+    package's line orders and pair probabilities (within 1e-6)."""
+    import json
+    from PIL import Image
+    from kraken_tpu_torch.configs import SegmentationInferenceConfig
+    from kraken_tpu_torch.lib.geometry import pair_probabilities
+    from kraken_tpu_torch.models import load_models
+    from kraken_tpu_torch.tasks import SegmentationTaskModel
+    golden = json.loads((RESOURCES / 'torch_ro_golden.json').read_text())
+    task = SegmentationTaskModel(load_models(RESOURCES / 'blla_small.safetensors')
+                                 + load_models(RESOURCES / 'ro_small.safetensors'))
+    im = Image.open(RESOURCES / '170025120000003,0074.jpg')
+    seg = task.predict(im, SegmentationInferenceConfig())
+    ro = task.ro_models[0]
+    assert ro.device.type == 'cuda'
+    assert seg.line_orders == golden['line_orders']
+    probs = pair_probabilities(seg.lines, im.size, ro, ro.class_mapping)
+    np.testing.assert_allclose(probs, golden['pair_probabilities'], rtol=0, atol=1e-6)

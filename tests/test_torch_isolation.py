@@ -47,6 +47,20 @@ page = Image.open(res + '/170025120000003,0074.jpg').resize((354, 512))
 assert len(SegmentationTaskModel.load_model().predict(
     page, SegmentationInferenceConfig(device='cpu')).lines) > 10
 assert blla.segment(page, device='cpu').type == 'baselines'
+from kraken_tpu_torch.tasks import ForcedAlignmentTaskModel
+aligned = ForcedAlignmentTaskModel.load_model(res + '/overfit.mlmodel').predict(
+    Image.open(res + '/000236.png'),
+    Segmentation(type='baselines', imagename=res + '/000236.png', text_direction='horizontal-lr',
+                 script_detection=False,
+                 lines=[BaselineLine(id='a0', baseline=[[0, 10], [2543, 10]],
+                                     boundary=[[0, 0], [2543, 0], [2543, 155], [0, 155]],
+                                     text='\u0721 \u0718\u0721 \u0717')]),
+    RecognitionInferenceConfig(device='cpu', num_line_workers=0))
+assert aligned.lines[0].prediction and aligned.lines[0].cuts
+ro_task = SegmentationTaskModel(load_models(res + '/blla_small.safetensors')
+                                + load_models(res + '/ro_small.safetensors'))
+ro_seg = ro_task.predict(page, SegmentationInferenceConfig(device='cpu'))
+assert sorted(ro_seg.line_orders[-1]) == list(range(len(ro_seg.lines)))
 assert native.available()
 import os, tempfile
 from kraken_tpu_torch.kraken import cli
@@ -68,8 +82,9 @@ print('FORBIDDEN', bad)
 def test_port_runs_without_jax_or_kraken_tpu(resources):
     """A fresh interpreter runs the port's recognition forward and engine,
     its segmentation (the task model and the legacy ``blla.segment``), its
-    CLI (``segment -bl ocr`` to ALTO) and its page pipeline on the CPU and
-    never imports JAX or kraken_tpu (the test process itself has JAX)."""
+    forced alignment, its neural reading order, its CLI (``segment -bl
+    ocr`` to ALTO) and its page pipeline on the CPU and never imports JAX
+    or kraken_tpu (the test process itself has JAX)."""
     out = subprocess.run([sys.executable, '-c', _CHILD, str(resources)], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
