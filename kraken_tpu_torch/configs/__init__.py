@@ -18,6 +18,12 @@ none of the JAX package's link knobs either (``heatmap_precision``
 JAX default. Nor has it ``width_bucketing`` (a single page runs at its own
 width; only a page batch is padded to a common bucket) or ``fused_ridge``
 (the ridge filter of the baseline channels always runs in the forward).
+Nor has it ``accelerator`` (``device`` names the device), ``compile``
+(XLA compile options; torch runs eagerly) or ``device_pipeline_depth``
+(the recognition engine keeps one batch in flight, the JAX default), nor
+``num_threads`` (the CLI's ``--threads`` sizes OpenCV's pool; no config
+reads it) or ``linetype`` (the XML readers take the line type as an
+argument); those keys warn as unknown.
 """
 
 __all__ = ['Config', 'RecognitionInferenceConfig', 'SegmentationInferenceConfig']
@@ -90,7 +96,7 @@ class SegmentationInferenceConfig(Config):
         bbox_ro_fn / baseline_ro_fn: injectable reading-order functions
         ridge_threshold: threshold of the ridge response
         legacy_*, bbox_line_padding: parameters of the legacy bbox page
-                     segmenter, stored only (that segmenter is not ported)
+                     segmenter (``pageseg.segment``)
     """
 
     def __init__(self, **kwargs):

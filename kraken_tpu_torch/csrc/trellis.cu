@@ -31,13 +31,18 @@
 // page against 3.35 TB/s; each row must wait for the one before it. The
 // design is the simple one:
 // - one block a line, a thread a token column (2 columns a thread where
-//   L + 1 exceeds 1024 threads, up to 2048 columns: a line of more tokens
-//   needs over 4096 frames, which no text line has);
+//   L + 1 exceeds 1024 threads, up to 2048 columns);
 // - the current row double-buffered in shared memory, so one __syncthreads
 //   a frame separates a row's reads from the next row's writes;
 // - each thread loads the next frame's emissions into registers before it
 //   computes the current row, so the gather's latency overlaps a step;
 // - each row written out coalesced, a thread a column.
+// A line of more than 2047 tokens (it needs over 4096 frames; rare, but
+// any length must align) takes the "long" kernel: 1024 threads walk the
+// row in chunks of 1024 columns, a thread a column of each chunk, and read
+// the row before from the output itself, which the block wrote a step
+// earlier (the barrier makes it visible), so no length needs more shared
+// memory than a block has. Its arithmetic is the same, in the same order.
 // Later work (not done): a warp a short line, many lines a block, the next
 // emission rows staged by cp.async.
 #include <cuda_runtime.h>
@@ -49,20 +54,16 @@ constexpr int kMaxColsPerThread = 2;
 
 struct Geometry {
   int threads;  // a block's threads
-  int cpt;      // token columns a thread (1 or 2)
+  int cpt;      // token columns a thread (1 or 2), or 0: the long kernel
   int smem;     // dynamic shared memory in bytes: two rows of L_max + 1 floats (16 KB at most)
 };
 
-// Returns false when L_max + 1 columns exceed what a block takes.
-bool geometry(int L_max, Geometry* g) {
+Geometry geometry(int L_max) {
   const int cols = L_max + 1;
-  if (cols > kMaxColsPerThread * kMaxThreads) return false;
+  if (cols > kMaxColsPerThread * kMaxThreads) return {kMaxThreads, 0, 0};
   const int cpt = cols > kMaxThreads ? 2 : 1;
   const int per = (cols + cpt - 1) / cpt;
-  g->threads = (per + 31) / 32 * 32;
-  g->cpt = cpt;
-  g->smem = 2 * cols * (int)sizeof(float);
-  return true;
+  return {(per + 31) / 32 * 32, cpt, 2 * cols * (int)sizeof(float)};
 }
 
 // np.maximum: a, unless b is larger or NaN (a NaN a stays)
@@ -170,6 +171,60 @@ trellis_kernel(const float* __restrict__ emission, const int* __restrict__ token
   if (bad) atomicOr(error, bad);
 }
 
+// The trellis of a line of any length (the kernel above for L + 1 > 2048
+// columns): the same checks and arithmetic, the columns walked in chunks of
+// blockDim.x, the row before read back from `trellis`.
+__global__ void __launch_bounds__(kMaxThreads)
+trellis_long_kernel(const float* __restrict__ emission, const int* __restrict__ tokens,
+                    const int* __restrict__ frame_lens, const int* __restrict__ token_lens,
+                    float* trellis, int T_max, int C, int L_max, int* __restrict__ error) {
+  const int n = blockIdx.x;
+  const int T = frame_lens[n];
+  const int L = token_lens[n];
+  if (T < 0 || T > T_max || L < 1 || L > L_max) {
+    if (threadIdx.x == 0) atomicOr(error, 1);
+    return;
+  }
+  const int W = L_max + 1;
+  const float* E = emission + (size_t)n * T_max * C;
+  const int* tok = tokens + (size_t)n * L_max;
+  float* out = trellis + (size_t)n * (T_max + 1) * W;
+  const int first_inf = T + 1 - L;
+  const float inf = __int_as_float(0x7f800000);
+  int bad = 0;
+  for (int j = threadIdx.x; j <= L; j += blockDim.x) {
+    out[j] = j == 0 ? (first_inf <= 0 ? inf : 0.f) : -inf;
+    if (j >= 1 && (tok[j - 1] < 0 || tok[j - 1] >= C)) bad |= 2;
+  }
+  float acc = 0.f;
+  __syncthreads();
+  for (int t = 0; t < T; ++t) {
+    const float* e = E + (size_t)t * C;
+    const float* prev = out + (size_t)t * W;
+    float* cur = out + (size_t)(t + 1) * W;
+    const float e0 = e[0];
+    for (int j = threadIdx.x; j <= L; j += blockDim.x) {
+      float v;
+      if (j == 0) {
+        if (!isfinite(e0)) bad |= 4;
+        acc = __fadd_rn(acc, e0);
+        v = t + 1 >= first_inf ? inf : acc;
+      } else {
+        int k = tok[j - 1];
+        if (k < 0 || k >= C) k = 0;
+        const float et = e[k];
+        if (!isfinite(et)) bad |= 4;
+        const float stay = __fadd_rn(prev[j], e0);
+        const float advance = __fadd_rn(prev[j - 1], et);
+        v = np_maximum(stay, advance);
+      }
+      cur[j] = v;
+    }
+    __syncthreads();
+  }
+  if (bad) atomicOr(error, bad);
+}
+
 template <int CPT>
 cudaError_t launch(const float* emission, const int* tokens, const int* frame_lens,
                    const int* token_lens, float* trellis, int N, int T_max, int C, int L_max,
@@ -188,10 +243,8 @@ cudaError_t launch(const float* emission, const int* tokens, const int* frame_le
 extern "C" int trellis_forward(const void* emission, const void* tokens, const void* frame_lens,
                                const void* token_lens, void* trellis, void* error, int N,
                                int T_max, int C, int L_max, int device, void* stream) {
-  Geometry g;
-  if (N <= 0 || T_max < 0 || C <= 0 || L_max <= 0 || !geometry(L_max, &g)) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (N <= 0 || T_max < 0 || C <= 0 || L_max <= 0) return (int)cudaErrorInvalidValue;
+  const Geometry g = geometry(L_max);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const float* e = static_cast<const float*>(emission);
@@ -202,6 +255,9 @@ extern "C" int trellis_forward(const void* emission, const void* tokens, const v
   int* err_bits = static_cast<int*>(error);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (g.cpt) {
+    case 0:
+      trellis_long_kernel<<<N, g.threads, 0, s>>>(e, tok, fl, tl, out, T_max, C, L_max, err_bits);
+      return (int)cudaGetLastError();
     case 1: return (int)launch<1>(e, tok, fl, tl, out, N, T_max, C, L_max, err_bits, g, s);
     case 2: return (int)launch<2>(e, tok, fl, tl, out, N, T_max, C, L_max, err_bits, g, s);
     default: return (int)cudaErrorInvalidValue;

@@ -3,18 +3,18 @@ kraken_tpu_torch.kraken
 ~~~~~~~~~~~~~~~~~~~~~~~
 
 Command line driver for inference, the counterpart of the JAX package's
-``kraken.py``: a chainable ``segment ocr`` pipeline over input/output file
-pairs or glob batches, with ALTO/PageXML/hOCR/abbyyXML serialization
-(reference: kraken/kraken.py). Run it as ``python -m kraken_tpu_torch.kraken``
-or as the ``kraken-torch`` script.
+``kraken.py``: a chainable ``binarize segment ocr`` pipeline over
+input/output file pairs, glob batches or the pages of PDF files, with
+ALTO/PageXML/hOCR/abbyyXML serialization (reference: kraken/kraken.py). Run
+it as ``python -m kraken_tpu_torch.kraken`` or as the ``kraken-torch``
+script.
 
 It runs on the card: ``--device`` defaults to ``cuda`` and a run without a
-card stops with a usage error unless it asks for ``--device cpu``. Parts
-that later slices of the port bring (binarization, the legacy box
-segmenter, PDF input) stop with a usage error naming the ROADMAP item; the
-TPU-link options (``--transfer``, ``--devices``, ``--device-vectorize``)
-and the model repository commands (``list``, ``get``, ``show`` of a remote
-model) are not ported.
+card stops with a usage error unless it asks for ``--device cpu``
+(``binarize`` on the host, its default, needs no card but the check is the
+same for every run). The TPU-link options (``--transfer``, ``--devices``,
+``--device-vectorize``) and the model repository commands (``list``,
+``get``, ``show`` of a remote model) are not ported.
 """
 import dataclasses
 import logging
@@ -43,13 +43,6 @@ def message(msg: str, **styles) -> None:
         click.secho(msg, **styles)
 
 
-def not_ported(what: str, item: str) -> click.UsageError:
-    """The usage error of a part of the CLI that a later slice ports."""
-    return click.UsageError(f'{what} is not ported to kraken_tpu_torch yet '
-                            f'(ROADMAP.md, queue 1, item {item}); use the JAX package\'s '
-                            '`kraken` for it.')
-
-
 def get_input_parser(type_str: str) -> Callable[[str], dict[str, Any]]:
     from kraken_tpu_torch.xml import XMLPage
     if type_str in ('alto', 'page', 'xml'):
@@ -58,7 +51,45 @@ def get_input_parser(type_str: str) -> Callable[[str], dict[str, Any]]:
 
 
 # ------------------------------------------------------------ stage drivers
-def segmenter(model, config, input, output) -> None:
+def binarizer(threshold, zoom, escale, border, perc, range, low, high, accel,
+              input, output) -> None:
+    import numpy as np
+    from PIL import Image
+    from kraken_tpu_torch.binarization import nlbin
+
+    ctx = click.get_current_context()
+    if ctx.meta['first_process']:
+        if ctx.meta['input_format_type'] != 'image':
+            input = get_input_parser(ctx.meta['input_format_type'])(input).imagename
+        ctx.meta['first_process'] = False
+    else:
+        raise click.UsageError('binarize must be the first stage of the pipeline.')
+    try:
+        im = Image.open(input)
+        if accel == 'device':
+            from kraken_tpu_torch.ops.binarize import nlbin_device
+            bw = nlbin_device(np.asarray(im.convert('L')), threshold, zoom, escale, border,
+                              perc, range, low, high, device=ctx.meta['device'])
+            res = Image.fromarray(bw.cpu().numpy().astype(np.uint8) * 255).convert('1')
+        else:
+            res = nlbin(im, threshold, zoom, escale, border, perc, range, low, high)
+        form = None
+        ext = os.path.splitext(output)[1]
+        if ext in ('.jpg', '.jpeg', '.JPG', '.JPEG', ''):
+            form = 'png'
+            if ext:
+                logger.warning('JPEG cannot store 1bpp output; writing PNG instead.')
+        res.save(f'{output}', format=form)
+        ctx.meta['base_image'] = output
+    except Exception:
+        if ctx.meta['raise_failed']:
+            raise
+        message('✗', fg='red')
+        ctx.exit(1)
+    message('✓', fg='green')
+
+
+def segmenter(legacy, model, config, input, output) -> None:
     import json
     from PIL import Image
 
@@ -75,7 +106,18 @@ def segmenter(model, config, input, output) -> None:
         raise click.BadParameter(str(e))
     message(f'Segmenting\t{input}\t', nl=False)
     try:
-        res = model.predict(im=im, config=config)
+        if legacy:
+            from kraken_tpu_torch.pageseg import segment as legacy_segment
+            res = legacy_segment(im,
+                                 text_direction=config.text_direction,
+                                 scale=config.legacy_scale,
+                                 maxcolseps=config.legacy_maxcolseps,
+                                 black_colseps=config.legacy_black_colseps,
+                                 no_hlines=config.legacy_no_hlines,
+                                 pad=config.bbox_line_padding,
+                                 reading_order_fn=config.bbox_ro_fn)
+        else:
+            res = model.predict(im=im, config=config)
     except Exception:
         if ctx.meta['raise_failed']:
             raise
@@ -194,10 +236,12 @@ def _resolve_device(device: str) -> str:
 @click.option('-I', '--batch-input', multiple=True,
               help='Glob expression to add multiple files at once.')
 @click.option('-o', '--suffix', default='',
-              help='Suffix for output files from batch inputs.')
+              help='Suffix for output files from batch and PDF inputs.')
 @click.option('-v', '--verbose', default=0, count=True)
 @click.option('-f', '--format-type', type=click.Choice(['image', 'alto', 'page', 'pdf', 'xml']),
-              default='image', help='Sets the default input type (pdf is not ported yet).')
+              default='image', help='Sets the default input type.')
+@click.option('-p', '--pdf-format', default='{src}_{idx:06d}',
+              help='Format for output of PDF files.')
 @click.option('-h', '--hocr', 'serializer', flag_value='hocr',
               help='Serializer switch (hOCR/ALTO/abbyyXML/PageXML/native).')
 @click.option('-a', '--alto', 'serializer', flag_value='alto')
@@ -219,21 +263,19 @@ def _resolve_device(device: str) -> str:
               help='Maximum size of host thread pools.')
 @click.option('--subline-segmentation/--no-subline-segmentation', default=True,
               help='Enable/disable subline segmentation in serialized output.')
-def cli(input, batch_input, suffix, verbose, format_type, serializer, template, device,
-        precision, raise_on_error, num_threads, subline_segmentation):
+def cli(input, batch_input, suffix, verbose, format_type, pdf_format, serializer, template,
+        device, precision, raise_on_error, num_threads, subline_segmentation):
     """
     Base command for recognition functionality.
 
     Subcommands are chainable sequences of processing steps applied to every
-    input file in order: segment ocr.
+    input file in order: binarize segment ocr.
     """
     ctx = click.get_current_context()
-    if format_type == 'pdf':
-        raise not_ported('PDF input (-f pdf)', '8')
     ctx.meta['device'] = _resolve_device(device)
     ctx.meta['precision'] = {'64': '64-true', '32': '32-true',
                              'bf16': 'bf16-true', '16': '16-true'}[precision]
-    ctx.meta['input_format_type'] = format_type
+    ctx.meta['input_format_type'] = format_type if format_type != 'pdf' else 'image'
     ctx.meta['raise_failed'] = raise_on_error
     ctx.meta['output_mode'] = serializer if not template else template
     ctx.meta['output_template'] = template
@@ -245,7 +287,8 @@ def cli(input, batch_input, suffix, verbose, format_type, serializer, template, 
 
 
 @cli.result_callback()
-def process_pipeline(subcommands, input, batch_input, suffix, verbose, format_type, **args):
+def process_pipeline(subcommands, input, batch_input, suffix, verbose, format_type,
+                     pdf_format, **args):
     """
     Executes the pipeline for every input file.
     """
@@ -267,6 +310,22 @@ def process_pipeline(subcommands, input, batch_input, suffix, verbose, format_ty
             for in_file in glob.glob(str(Path(batch_expr).expanduser()), recursive=True):
                 input.append((Path(in_file), Path(in_file).with_suffix(suffix)))
 
+    # PDF page extraction
+    if format_type == 'pdf':
+        if not suffix:
+            raise click.UsageError('PDF inputs require a suffix (-o).')
+        new_input = []
+        for (fpath, _) in input:
+            doc = _pdf_pages(fpath)
+            for idx, page in enumerate(doc):
+                dest = Path(pdf_format.format(src=fpath.with_suffix(''),
+                                              idx=idx)).with_suffix(suffix)
+                tmp = tempfile.NamedTemporaryFile(suffix='.png', delete=False)
+                page.save(tmp.name)
+                ctx.meta['tmp_files'] = ctx.meta.get('tmp_files', []) + [tmp.name]
+                new_input.append((Path(tmp.name), dest))
+        input = new_input
+
     for io_pair in input:
         ctx.meta['first_process'] = True
         ctx.meta.pop('base_image', None)
@@ -285,15 +344,72 @@ def process_pipeline(subcommands, input, batch_input, suffix, verbose, format_ty
             for tmp in tmps:
                 if os.path.exists(tmp):
                     os.unlink(tmp)
+    for tmp in ctx.meta.get('tmp_files', []):
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _pdf_pages(path):
+    """Returns PDF pages as images.
+
+    Prefers a real rasterizer (pyvips, as the reference uses at
+    kraken/kraken.py:363-399, then PyMuPDF); without one, takes the
+    dependency-free scanned-PDF extractor (`kraken_tpu_torch.lib.pdf`),
+    which pulls the embedded page images out of the container at native
+    resolution. Every route returns PIL images.
+    """
+    import io as _io
+    from PIL import Image
+    try:
+        import pyvips
+        n = pyvips.Image.new_from_file(str(path), n=-1).get('n-pages')
+        return [Image.open(_io.BytesIO(
+                    pyvips.Image.new_from_file(str(path), page=i, dpi=300).write_to_buffer('.png')))
+                for i in range(n)]
+    except ImportError:
+        pass
+    try:
+        import fitz  # PyMuPDF
+        return [Image.open(_io.BytesIO(page.get_pixmap(dpi=300).tobytes('png')))
+                for page in fitz.open(str(path))]
+    except ImportError:
+        pass
+    from kraken_tpu_torch.lib.pdf import PDFError, extract_page_images
+    try:
+        return list(extract_page_images(path))
+    except PDFError as e:
+        raise click.UsageError(
+            f'{e} (the built-in extractor handles scanned PDFs only; '
+            'install pyvips or PyMuPDF for full rasterization)')
 
 
 # -------------------------------------------------------------- subcommands
 @cli.command('binarize')
-def binarize():
+@click.pass_context
+@click.option('--threshold', default=0.5, type=click.FLOAT)
+@click.option('--zoom', default=0.5, type=click.FLOAT)
+@click.option('--escale', default=1.0, type=click.FLOAT)
+@click.option('--border', default=0.1, type=click.FLOAT)
+@click.option('--perc', default=80, type=click.IntRange(1, 100))
+@click.option('--range', default=20, type=click.IntRange(1),
+              help='Side of the percentile windows (range x 2, then 2 x range).')
+@click.option('--low', default=5, type=click.IntRange(1, 100))
+@click.option('--high', default=90, type=click.IntRange(1, 100))
+@click.option('--accel', type=click.Choice(['host', 'device']), default='host',
+              help='Run nlbin on the host (OpenCV and the native percentile) or on the '
+                   '--device (the card by default).')
+def binarize(ctx, threshold, zoom, escale, border, perc, range, low, high, accel):
     """
-    Binarizes page images (not ported yet).
+    Binarizes page images.
     """
-    raise not_ported('binarize', '8')
+    ctx.meta['steps'].append({'category': 'preprocessing',
+                              'description': 'Image binarization',
+                              'settings': {'threshold': threshold, 'zoom': zoom,
+                                           'escale': escale, 'border': border,
+                                           'perc': perc, 'range': range,
+                                           'low': low, 'high': high}})
+    return partial(binarizer, threshold, zoom, escale, border, perc, range, low,
+                   high, accel)
 
 
 @cli.command('segment')
@@ -301,8 +417,7 @@ def binarize():
 @click.option('-i', '--model', type=str, help='Baseline/region detection model(s) to use',
               multiple=True)
 @click.option('-x/-bl', '--boxes/--baseline', default=True,
-              help='Switch between legacy box segmenter (not ported yet) and neural '
-                   'baseline segmenter')
+              help='Switch between legacy box segmenter and neural baseline segmenter')
 @click.option('-d', '--text-direction', default='horizontal-lr',
               type=click.Choice(['horizontal-lr', 'horizontal-rl', 'vertical-lr', 'vertical-rl']),
               help='Sets principal text direction')
@@ -323,9 +438,6 @@ def segment(ctx, model, boxes, text_direction, legacy_scale, legacy_maxcolseps,
     """
     from kraken_tpu_torch.configs import SegmentationInferenceConfig
 
-    if boxes:
-        raise not_ported('The legacy box segmenter (segment -x, the default; pass -bl '
-                         'for the neural baseline segmenter)', '8')
     config = SegmentationInferenceConfig(text_direction=text_direction,
                                          legacy_scale=legacy_scale,
                                          legacy_maxcolseps=legacy_maxcolseps,
@@ -336,32 +448,41 @@ def segment(ctx, model, boxes, text_direction, legacy_scale, legacy_maxcolseps,
                                          device=ctx.meta['device'],
                                          precision=ctx.meta['precision'],
                                          raise_on_error=ctx.meta['raise_failed'])
-    from kraken_tpu_torch.tasks import SegmentationTaskModel
-    if not model and not SEGMENTATION_DEFAULT_MODEL.exists():
-        raise click.UsageError(
-            'No segmentation model given (-i) and no packaged default '
-            '(blla.safetensors / blla.mlmodel) found in this build.')
-    paths = list(model) or [SEGMENTATION_DEFAULT_MODEL]
-    models = []
-    from kraken_tpu_torch.models import load_models
-    for p in paths:
-        message(f'Loading ANN {p}\t', nl=False)
-        try:
-            models.extend(load_models(p))
-        except Exception:
-            if ctx.meta['raise_failed']:
-                raise
-            message('✗', fg='red')
-            ctx.exit(1)
-        message('✓', fg='green')
-    task_model = SegmentationTaskModel(models)
-    ctx.meta['steps'].append({'category': 'processing',
-                              'description': 'Baseline and region segmentation',
-                              'settings': {'model': [str(p) for p in paths],
-                                           'text_direction': text_direction}})
+    task_model = None
+    if not boxes:
+        from kraken_tpu_torch.tasks import SegmentationTaskModel
+        if not model and not SEGMENTATION_DEFAULT_MODEL.exists():
+            raise click.UsageError(
+                'No segmentation model given (-i) and no packaged default '
+                '(blla.safetensors / blla.mlmodel) found in this build.')
+        paths = list(model) or [SEGMENTATION_DEFAULT_MODEL]
+        models = []
+        from kraken_tpu_torch.models import load_models
+        for p in paths:
+            message(f'Loading ANN {p}\t', nl=False)
+            try:
+                models.extend(load_models(p))
+            except Exception:
+                if ctx.meta['raise_failed']:
+                    raise
+                message('✗', fg='red')
+                ctx.exit(1)
+            message('✓', fg='green')
+        task_model = SegmentationTaskModel(models)
+        ctx.meta['steps'].append({'category': 'processing',
+                                  'description': 'Baseline and region segmentation',
+                                  'settings': {'model': [str(p) for p in paths],
+                                               'text_direction': text_direction}})
+    else:
+        ctx.meta['steps'].append({'category': 'processing',
+                                  'description': 'bounding box segmentation',
+                                  'settings': {'text_direction': text_direction,
+                                               'scale': legacy_scale,
+                                               'maxcolseps': legacy_maxcolseps,
+                                               'black_colseps': legacy_black_colseps}})
     ctx.meta['text_direction'] = ('horizontal-tb' if text_direction.startswith('horizontal')
                                   else 'vertical-lr')
-    return partial(segmenter, task_model, config)
+    return partial(segmenter, boxes, task_model, config)
 
 
 @cli.command('ocr')

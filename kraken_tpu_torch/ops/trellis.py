@@ -34,10 +34,7 @@ import torch
 
 from kraken_tpu_torch.ops.build import raw_stream
 
-__all__ = ['trellis', 'trellis_reference', 'pad', 'blocks', 'MAX_TOKENS']
-
-# a block takes 1024 threads of at most 2 token columns each (csrc/trellis.cu)
-MAX_TOKENS = 1024 * 2 - 1
+__all__ = ['trellis', 'trellis_reference', 'pad', 'blocks']
 
 
 def _check(emission: torch.Tensor, tokens: torch.Tensor, frame_lens: torch.Tensor,
@@ -136,9 +133,10 @@ def trellis(emission: torch.Tensor, tokens: torch.Tensor, frame_lens: torch.Tens
     ``trellis.launches`` and waits for it (the kernel checks each line's
     counts, tokens and emissions and reports what it refuses). It raises on
     a type, shape, layout or device the kernel does not take (contiguous
-    tensors), on more than MAX_TOKENS tokens a line, on counts out of range,
-    tokens outside the classes and emissions that are not finite (as the
-    plain version's caller does on the CPU), and when the launch is refused.
+    tensors), on counts out of range, tokens outside the classes and
+    emissions that are not finite (as the plain version's caller does on
+    the CPU), and when the launch is refused. A line may have any number of
+    tokens.
     """
     _check(emission, tokens, frame_lens, token_lens)
     device = emission.device
@@ -151,9 +149,6 @@ def trellis(emission: torch.Tensor, tokens: torch.Tensor, frame_lens: torch.Tens
         raise ValueError('trellis takes contiguous tensors')
     N, T_max, C = emission.shape
     L_max = tokens.shape[1]
-    if L_max > MAX_TOKENS:
-        raise ValueError(f'the trellis kernel takes at most {MAX_TOKENS} tokens a line, '
-                         f'not {L_max}')
     out = torch.empty((N, T_max + 1, L_max + 1), dtype=torch.float32, device=device)
     if N == 0:
         return out

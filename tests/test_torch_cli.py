@@ -8,13 +8,20 @@ through the logger ``kraken``):
   native text, byte for byte; ``segment -bl`` alone: the same JSON;
 - ``-f xml`` input to ALTO, PageXML, hOCR and abbyyXML: the same
   documents, schema-valid (ALTO 4.3, PAGE 2019, FineReader 10);
+- ``binarize`` on the host: the same PNG bytes; ``binarize --accel
+  device``: the same pixels but where the flattened page lies within 1e-5
+  of the threshold; the legacy box segmenter ``segment -x`` (the default,
+  and with its options): the same JSON; ``segment -x ocr``: the same
+  native text and ALTO; ``binarize segment -x ocr`` on a grey page; ``-f
+  pdf`` over a scanned PDF: the same text a page; the
+  ``recognition_boxes`` contrib script: the same picture;
 - ``ocr -s`` on a line image, the recognizer's options and ``show`` on a
   local model;
 - the golden ``tests/resources/torch_cli_golden.json`` (the JAX CLI's
   native text of the fixture page and its normalised ALTO of the fixture
   XML, which the card holds the port's CLI to) equals a fresh JAX run;
 - without a card a run that does not ask for ``--device cpu`` fails, and
-  so do the parts that a later slice ports and the options left out.
+  so do the options left out.
 
 Outputs are normalised in three things only: each generated ``_<uuid4>``
 id (renamed by its order of first appearance), the PageXML
@@ -47,6 +54,7 @@ import click
 import pytest
 import torch
 from click.testing import CliRunner
+from PIL import Image
 
 import kraken_tpu
 import kraken_tpu.kraken as jax_kraken
@@ -114,12 +122,17 @@ def jax_writing_mode():
         jax_kraken.recognizer = original
 
 
-def run(cli, args: list, out: Path) -> str:
-    """Runs a CLI and returns the text of the file it wrote."""
+def invoke(cli, args: list) -> None:
+    """Runs a CLI, which must succeed."""
     with jax_writing_mode(), warnings.catch_warnings():
         warnings.simplefilter('ignore')
         result = CliRunner().invoke(cli.cli, [str(a) for a in args])
     assert result.exit_code == 0, (result.output, result.exception)
+
+
+def run(cli, args: list, out: Path) -> str:
+    """Runs a CLI and returns the text of the file it wrote."""
+    invoke(cli, args)
     return out.read_text(encoding='utf-8')
 
 
@@ -241,10 +254,6 @@ def test_without_a_card_the_default_device_fails(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize('args, says', [
-    (['binarize'], 'queue 1, item 8'),
-    (['segment'], 'queue 1, item 8'),
-    (['segment', '-x'], 'queue 1, item 8'),
-    (['-f', 'pdf', 'segment', '-bl'], 'queue 1, item 8'),
     (['segment', '-bl', '--transfer', 'bytes'], 'No such option'),
     (['segment', '-bl', '--devices', '2'], 'No such option'),
     (['segment', '-bl', '--device-vectorize'], 'No such option'),
@@ -259,6 +268,138 @@ def test_parts_not_ported_fail(args, says, tmp_path):
     assert result.exit_code == 2, result.output
     assert says in result.output
     assert not (tmp_path / 'x.txt').exists()
+
+
+def run_both(args: list, tmp: Path, name: str) -> tuple[Path, Path]:
+    """Runs the JAX CLI and the port's with `args`, each writing `name`
+    into a directory of its own (`args` name the output as OUT)."""
+    outs = []
+    for tag, cli in (('jax', jax_kraken), ('port', torch_kraken)):
+        (tmp / tag).mkdir(exist_ok=True)
+        out = tmp / tag / name
+        invoke(cli, ['-d', 'cpu', *(out if a == 'OUT' else a for a in args)])
+        outs.append(out)
+    return outs[0], outs[1]
+
+
+def test_binarize_host_png_equals_jax(tmp_path):
+    jax_png, port_png = run_both(['-i', RESOURCES / 'input.jpg', 'OUT', 'binarize'], tmp_path,
+                                 'bin.png')
+    assert port_png.read_bytes() == jax_png.read_bytes()
+    with Image.open(port_png) as im:
+        assert len(im.convert('L').getcolors(2)) == 2
+
+
+def test_binarize_device_equals_jax(tmp_path):
+    """``--accel device``: the port's nlbin_device on the CPU against the
+    JAX one; pixels may differ only where the flattened page lies within
+    1e-5 of the threshold."""
+    import numpy as np
+    import torch as _torch
+    from kraken_tpu_torch.ops.binarize import _nlbin_flat
+    args = ['-i', RESOURCES / 'input.jpg', 'OUT', 'binarize', '--accel', 'device']
+    jax_png, port_png = run_both(args, tmp_path, 'bin.png')
+    with Image.open(jax_png) as a, Image.open(port_png) as b:
+        assert (a.mode, a.size) == (b.mode, b.size) == ('1', (1456, 2184))
+        differ = np.asarray(a) != np.asarray(b)
+    gray = np.asarray(Image.open(RESOURCES / 'input.jpg').convert('L'), np.float32) / 255.0
+    near = (_nlbin_flat(_torch.from_numpy(gray)[None])[0] - 0.5).abs().numpy() <= 1e-5
+    assert not (differ & ~near).any()
+
+
+@pytest.mark.parametrize('args', [['segment', '-x'], ['segment'],
+                                  ['segment', '-x', '-b', '-m', '1', '-p', '5', '--scale', '10',
+                                   '-l', '-d', 'horizontal-rl']],
+                         ids=['x', 'default', 'options'])
+def test_legacy_segment_json_equals_jax(args, tmp_path):
+    jax_json, port_json = run_both(['-i', RESOURCES / 'bw.png', 'OUT', *args], tmp_path,
+                                   'seg.json')
+    seg = json.loads(port_json.read_text(encoding='utf-8'))
+    assert seg['type'] == 'bbox' and len(seg['lines']) > 20
+    assert normalise(port_json.read_text(encoding='utf-8')) == \
+        normalise(jax_json.read_text(encoding='utf-8'))
+
+
+@pytest.mark.parametrize('serializer', ['-n', '-a'], ids=['native', 'alto'])
+def test_legacy_segment_ocr_equals_jax(serializer, tmp_path):
+    from lxml import etree
+    args = [serializer, '-i', RESOURCES / 'bw.png', 'OUT', 'segment', '-x', 'ocr', '-m',
+            RESOURCES / 'overfit.mlmodel', '--num-line-workers', '0']
+    jax_out, port_out = run_both(args, tmp_path, 'out.txt')
+    doc = port_out.read_text(encoding='utf-8')
+    if serializer == '-n':
+        assert len(doc.splitlines()) == 30
+        assert doc == jax_out.read_text(encoding='utf-8')
+    else:
+        assert_same_document(doc, jax_out.read_text(encoding='utf-8'))
+        schema = etree.XMLSchema(etree.parse(str(RESOURCES / SCHEMAS['alto'])))
+        schema.assertValid(etree.fromstring(doc.encode('utf-8')))
+
+
+def test_binarize_segment_ocr_equals_jax(tmp_path):
+    """The legacy path from a grey page: binarize, segment -x, ocr."""
+    args = ['-i', RESOURCES / 'input.jpg', 'OUT', 'binarize', 'segment', '-x', 'ocr', '-m',
+            RESOURCES / 'overfit.mlmodel', '--num-line-workers', '0']
+    jax_out, port_out = run_both(args, tmp_path, 'out.txt')
+    text = port_out.read_text(encoding='utf-8')
+    assert len(text.splitlines()) > 20
+    assert text == jax_out.read_text(encoding='utf-8')
+
+
+def test_pdf_segment_ocr_equals_jax(tmp_path):
+    """``-f pdf`` over a scanned two-page PDF (pages of bw.png): one text
+    file a page, each the JAX CLI's."""
+    import zlib
+    import numpy as np
+    import tests.test_pdf as pdf_tests
+    with Image.open(RESOURCES / 'bw.png') as im:
+        pages = [im.convert('L').crop((0, 0, 924, 800)), im.convert('L').crop((0, 800, 924, 1624))]
+    objs = pdf_tests._doc_skeleton([3, 5])
+    for num, page in ((3, pages[0]), (5, pages[1])):
+        objs[num] = pdf_tests._page_obj(num, 2, img_ref=num + 1)
+        objs[num + 1] = pdf_tests._image_obj(num + 1, zlib.compress(np.asarray(page).tobytes()),
+                                             page.width, page.height, cs='/DeviceGray',
+                                             filt='FlateDecode')
+    texts = {}
+    for tag, cli in (('jax', jax_kraken), ('port', torch_kraken)):
+        (tmp_path / tag).mkdir()
+        pdf = tmp_path / tag / 'doc.pdf'
+        pdf.write_bytes(pdf_tests._assemble_classic(objs))
+        invoke(cli, ['-d', 'cpu', '-f', 'pdf', '-o', '.txt', '-i', pdf, tmp_path / tag / 'x',
+                     'segment', '-x', 'ocr', '-m', RESOURCES / 'overfit.mlmodel',
+                     '--num-line-workers', '0'])
+        texts[tag] = [(tmp_path / tag / f'doc_{i:06d}.txt').read_text(encoding='utf-8')
+                      for i in range(2)]
+    assert not (tmp_path / 'port' / 'doc_000002.txt').exists()
+    assert all(len(t.splitlines()) > 5 for t in texts['port'])
+    assert texts['port'] == texts['jax']
+
+
+def test_recognition_boxes_equals_jax(tmp_path):
+    """The contrib script of the legacy segmenter (tests/test_contrib.py:
+    test_recognition_boxes), on the CPU: the JAX script's picture."""
+    import shutil
+    import numpy as np
+    from kraken_tpu.contrib.recognition_boxes import cli as jax_cli
+    from kraken_tpu_torch.contrib.recognition_boxes import cli as port_cli
+    pictures = []
+    for tag, cli, extra in (('jax', jax_cli, []), ('port', port_cli, ['-d', 'cpu'])):
+        (tmp_path / tag).mkdir()
+        shutil.copy(RESOURCES / 'bw.png', tmp_path / tag / 'bw.png')
+        result = CliRunner().invoke(cli, ['-m', str(RESOURCES / 'overfit.mlmodel'), *extra,
+                                          str(tmp_path / tag / 'bw.png')])
+        assert result.exit_code == 0, result.output
+        assert (tmp_path / tag / 'bw.png.boxes.png').exists(), result.output
+        pictures.append(np.asarray(Image.open(tmp_path / tag / 'bw.png.boxes.png')))
+    assert np.array_equal(pictures[1], pictures[0])
+
+
+def test_recognition_boxes_needs_a_card_unless_asked(monkeypatch, tmp_path):
+    from kraken_tpu_torch.contrib.recognition_boxes import cli
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    result = CliRunner().invoke(cli, ['-m', str(RESOURCES / 'overfit.mlmodel'),
+                                      str(RESOURCES / 'bw.png')])
+    assert result.exit_code == 2 and 'no CUDA device' in result.output
 
 
 def test_an_unknown_device_is_a_usage_error(tmp_path):

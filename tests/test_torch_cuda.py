@@ -527,7 +527,7 @@ def test_trellis_kernel_equals_plain(cuda_device, shapes):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('bad', ['nan', 'token_high', 'frames_over', 'no_tokens', 'strided',
-                                 'devices', 'long_line'])
+                                 'devices'])
 def test_trellis_wrapper_raises(cuda_device, bad):
     """Layouts are refused before the launch; counts, tokens and emissions
     by the kernel, which writes nothing for the line (a launch)."""
@@ -549,14 +549,98 @@ def test_trellis_wrapper_raises(cuda_device, bad):
         launched = 0
         if bad == 'strided':
             e = torch.zeros(6, 2, 5, device=cuda_device).transpose(0, 1)
-        elif bad == 'devices':
-            fl = fl.cpu()
         else:
-            t = torch.ones(2, 2048, dtype=torch.int32, device=cuda_device)
+            fl = fl.cpu()
     before = trellis.launches
     with pytest.raises(ValueError):
         trellis(e, t, fl, tl)
     assert trellis.launches == before + launched
+
+
+@pytest.mark.cuda
+def test_trellis_wrapper_takes_a_long_line(cuda_device):
+    """A line of more than 2047 tokens (2048 columns a block at 2 a thread)
+    takes the kernel's long route: a 4096-frame line of 3000 tokens padded
+    in a batch with short lines, each line bit for bit the plain version's
+    and numpy's get_trellis, in one launch."""
+    from kraken_tpu_torch.align import get_trellis
+    from kraken_tpu_torch.ops.trellis import blocks, pad, trellis, trellis_reference
+    lines = trellis_lines(7, [(4096, 3000, 40), (12, 5, 40), (300, 100, 7), (1, 1, 3)])
+    args = pad([e for e, _ in lines], [t for _, t in lines], 'cpu')
+    frames, lens = args[2].tolist(), args[3].tolist()
+    before = trellis.launches
+    out = trellis(*[a.to(cuda_device) for a in args])
+    torch.cuda.synchronize()
+    assert trellis.launches == before + 1
+    ref = trellis_reference(*args)
+    for (e, t), a, b in zip(lines, blocks(out.cpu(), frames, lens), blocks(ref, frames, lens)):
+        assert torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+        assert np.array_equal(a.numpy(), get_trellis(e, t))
+
+
+def long_line_page(seed: int):
+    """A 25,700 x 100 page, three short lines and one line 25,600 px wide
+    (6,202 frames of the overfit_bl recognizer, which takes 30-px lines;
+    the alignment needs 2 a token) with a transcription of 3,000 of the
+    model's characters."""
+    from PIL import Image
+    from kraken_tpu_torch.containers import BaselineLine, Segmentation
+    from kraken_tpu_torch.models import load_models
+    rng = np.random.RandomState(seed)
+    im = Image.fromarray((rng.rand(100, 25700) * 255).astype(np.uint8))
+    chars = sorted(c for c in load_models(RESOURCES / 'overfit_bl.safetensors')[0].codec.c2l
+                   if len(c) == 1 and not c.isspace())
+
+    def line(i, x0, x1, y0, n):
+        return BaselineLine(id=f'l{i}', baseline=[[x0, y0 + 25], [x1, y0 + 25]],
+                            boundary=[[x0, y0], [x1, y0], [x1, y0 + 30], [x0, y0 + 30]],
+                            text=''.join(rng.choice(chars, n)))
+    short = [line(0, 0, 600, 0, 20), line(1, 700, 1300, 0, 40), line(2, 1400, 2200, 0, 50)]
+    long = line(3, 0, 25600, 50, 3000)
+    seg = lambda lines: Segmentation(type='baselines', imagename='long.png',  # noqa: E731
+                                     text_direction='horizontal-lr', script_detection=False,
+                                     lines=lines)
+    return im, seg(short), seg(short + [long])
+
+
+@pytest.mark.cuda
+def test_alignment_of_a_line_over_2047_tokens(cuda_device):
+    """A page with a line of 3,000 tokens aligns on the card in one trellis
+    launch: every line's record is what numpy's get_trellis and the
+    backtrack give on the emissions the task built, and the page's other
+    lines are aligned as on the page without the long line."""
+    from kraken_tpu_torch.align import backtrack, get_trellis, merge_repeats
+    from kraken_tpu_torch.configs import RecognitionInferenceConfig
+    from kraken_tpu_torch.lib.bidi import get_display
+    from kraken_tpu_torch.ops.trellis import trellis
+    from kraken_tpu_torch.tasks import ForcedAlignmentTaskModel
+    from kraken_tpu_torch.tasks import align as align_task
+    im, short, page = long_line_page(0)
+    task = ForcedAlignmentTaskModel.load_model(RESOURCES / 'overfit_bl.safetensors')
+    batches = []
+    batch_fn = align_task.get_trellis_batch
+
+    def recorded(emissions, tokens, device):
+        batches.append((emissions, tokens))
+        return batch_fn(emissions, tokens, device)
+
+    align_task.get_trellis_batch = recorded
+    try:
+        before = trellis.launches
+        aligned = task.predict(im, page, RecognitionInferenceConfig())
+        assert trellis.launches == before + 1
+        alone = task.predict(im, short, RecognitionInferenceConfig())
+    finally:
+        align_task.get_trellis_batch = batch_fn
+    emissions, tokens = batches[0]
+    assert len(emissions) == 4 and max(len(t) for t in tokens) == 3000
+    for record, e, t in zip(aligned.lines, emissions, tokens):
+        segments = merge_repeats(backtrack(get_trellis(e, t), e, t), get_display(record.text))
+        assert record.prediction == ''.join(s.label for s in segments)
+        assert record.confidences == [s.score for s in segments]
+    assert len(aligned.lines[3].prediction) == 3000
+    for a, b in zip(aligned.lines[:3], alone.lines):
+        assert (a.prediction, a.cuts, a.confidences) == (b.prediction, b.cuts, b.confidences)
 
 
 @pytest.mark.cuda
@@ -616,3 +700,80 @@ def test_reading_order_on_the_card_equals_the_golden(cuda_device):
     assert seg.line_orders == golden['line_orders']
     probs = pair_probabilities(seg.lines, im.size, ro, ro.class_mapping)
     np.testing.assert_allclose(probs, golden['pair_probabilities'], rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape, r', [((1, 41, 37), 20), ((3, 40, 64), 20), ((1, 9, 5), 20),
+                                      ((3, 1, 30), 7), ((2, 64, 1), 33), ((1, 130, 70), 1),
+                                      ((3, 33, 33), 33), ((1, 5, 7), 1800)],
+                         ids=['odd', 'even_N3', 'narrow', 'one_row', 'one_col', 'r1',
+                              'r33', 'direct'])
+def test_percentile_kernel_equals_plain(cuda_device, shape, r):
+    """The sliding-window percentile kernel against its plain version, bit
+    for bit, in both window shapes, on maps narrower than the pad and on
+    the direct route (a window larger than a block's shared memory)."""
+    from kraken_tpu_torch.ops.binarize import window_percentile, window_percentile_reference
+    rng = np.random.RandomState(r)
+    x = torch.from_numpy(rng.rand(*shape).astype(np.float32))
+    x.view(-1)[::3] = x.view(-1)[0]  # ties
+    for size in ((r, 2), (2, r)):
+        before = window_percentile.launches
+        out = window_percentile(x.to(cuda_device), 80, size)
+        torch.cuda.synchronize()
+        assert window_percentile.launches == before + 1
+        ref = window_percentile_reference(x, 80, size)
+        assert torch.equal(out.cpu().view(torch.int32), ref.view(torch.int32)), size
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('size, route', [((20, 2), 'staged'), ((2, 20), 'staged'),
+                                         ((33, 2), 'staged'), ((1700, 2), 'staged'),
+                                         ((1800, 2), 'direct'), ((2, 7000), 'direct')])
+def test_percentile_geometry(cuda_device, size, route):
+    """The kernel's route on an H100: its 32 x 8 output tile and reflect
+    halo in shared memory, or from device memory when they exceed a
+    block's opt-in shared memory (232,448 bytes)."""
+    from kraken_tpu_torch.ops.binarize import TILE, geometry
+    got, smem, tile = geometry(size, cuda_device.index or 0)
+    assert (got, tile) == (route, TILE)
+    assert smem == ((8 + size[0] - 1) * (32 + size[1] - 1) * 4 if route == 'staged' else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('bad', ['nan', 'strided', 'dtype', 'window'])
+def test_percentile_wrapper_raises(cuda_device, bad):
+    """Layouts are refused before the launch; a NaN by the kernel (a
+    launch)."""
+    from kraken_tpu_torch.ops.binarize import window_percentile
+    x = torch.rand(2, 9, 8, device=cuda_device)
+    size, launched = (20, 2), 0
+    if bad == 'nan':
+        x[1, 3, 4] = float('nan')
+        launched = 1
+    elif bad == 'strided':
+        x = torch.rand(2, 8, 9, device=cuda_device).transpose(1, 2)
+    elif bad == 'dtype':
+        x = x.half()
+    else:
+        size = (2, 0)
+    before = window_percentile.launches
+    with pytest.raises((TypeError, ValueError)):
+        window_percentile(x, 80, size)
+    assert window_percentile.launches == before + launched
+
+
+@pytest.mark.cuda
+def test_nlbin_device_on_the_card_equals_the_cpu(cuda_device):
+    """nlbin of input.jpg on the card (two percentile launches) against the
+    same call on the CPU: equal but where the flattened page lies within
+    1e-5 of the threshold."""
+    from PIL import Image
+    from kraken_tpu_torch.ops.binarize import _nlbin_flat, nlbin_device, window_percentile
+    arr = np.asarray(Image.open(RESOURCES / 'input.jpg').convert('L'))
+    before = window_percentile.launches
+    card = nlbin_device(arr)
+    assert card.device.type == 'cuda' and window_percentile.launches == before + 2
+    flat = _nlbin_flat(torch.from_numpy(arr.astype(np.float32))[None] / 255.0)[0]
+    cpu = flat > 0.5
+    near = (flat - 0.5).abs() <= 1e-5
+    assert not ((card.cpu() != cpu) & ~near).any()

@@ -73,6 +73,33 @@ seg_model = SegmentationTaskModel.load_model()
 pages = list(process_pages([page, page], vmodel, lambda im: seg_model.predict(
     im, SegmentationInferenceConfig(device='cpu'))))
 assert len(pages) == 2 and all(len(recs) == len(seg.lines) > 10 for _, seg, recs in pages)
+import io
+from kraken_tpu_torch.binarization import nlbin
+from kraken_tpu_torch.lib.pdf import extract_page_images
+from kraken_tpu_torch.ops.binarize import nlbin_device
+from kraken_tpu_torch.pageseg import segment as legacy_segment
+gray = Image.open(res + '/input.jpg').convert('L').crop((0, 0, 600, 400))
+assert set(np.unique(np.asarray(nlbin(gray))).tolist()) == {0, 255}
+assert nlbin_device(np.asarray(gray), device='cpu').dtype == torch.bool
+bw = Image.open(res + '/bw.png')
+assert len(legacy_segment(bw).lines) > 20
+jpeg = io.BytesIO()
+gray.save(jpeg, format='JPEG')
+objs = [b'<< /Type /Catalog /Pages 2 0 R >>', b'<< /Type /Pages /Kids [3 0 R] /Count 1 >>',
+        b'<< /Type /Page /Parent 2 0 R /Resources << /XObject << /Im0 4 0 R >> >> >>',
+        b'<< /Type /XObject /Subtype /Image /Width 600 /Height 400 /ColorSpace /DeviceGray '
+        b'/BitsPerComponent 8 /Filter /DCTDecode /Length %d >>\\nstream\\n' % len(jpeg.getvalue())
+        + jpeg.getvalue() + b'\\nendstream']
+pdf, offsets = bytearray(b'%PDF-1.4\\n'), []
+for num, body in enumerate(objs, 1):
+    offsets.append(len(pdf))
+    pdf += b'%d 0 obj\\n' % num + body + b'\\nendobj\\n'
+xref = len(pdf)
+pdf += b'xref\\n0 5\\n0000000000 65535 f \\n' + b''.join(b'%010d 00000 n \\n' % o for o in offsets)
+pdf += b'trailer\\n<< /Size 5 /Root 1 0 R >>\\nstartxref\\n%d\\n%%%%EOF\\n' % xref
+doc = os.path.join(tempfile.mkdtemp(), 'doc.pdf')
+open(doc, 'wb').write(bytes(pdf))
+assert [im.size for im in extract_page_images(doc)] == [(600, 400)]
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'kraken_tpu'))
 print('FORBIDDEN', bad)
@@ -83,8 +110,9 @@ def test_port_runs_without_jax_or_kraken_tpu(resources):
     """A fresh interpreter runs the port's recognition forward and engine,
     its segmentation (the task model and the legacy ``blla.segment``), its
     forced alignment, its neural reading order, its CLI (``segment -bl
-    ocr`` to ALTO) and its page pipeline on the CPU and never imports JAX
-    or kraken_tpu (the test process itself has JAX)."""
+    ocr`` to ALTO), its page pipeline, the host and the device nlbin, the
+    legacy box segmenter and the PDF extractor on the CPU and never imports
+    JAX or kraken_tpu (the test process itself has JAX)."""
     out = subprocess.run([sys.executable, '-c', _CHILD, str(resources)], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
