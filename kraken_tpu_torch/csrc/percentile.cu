@@ -10,50 +10,88 @@
 // (sw - 1) / 2 columns to the left and sw - 1 - left to the right, with no
 // edge repeat (a pad wider than the map reflects again, with period
 // 2 (n - 1); a map of one row or column repeats it). Of its n = sh * sw
-// values the kernel takes the lo-th and hi-th smallest (0-based) and
-// writes v_lo * w_lo + v_hi * w_hi, each product and the sum rounded once
-// (__fmul_rn, __fadd_rn: no FMA is contracted), which is jnp.percentile's
-// 'linear' method when the wrapper computes lo, hi and the weights as JAX
-// does (ops/binarize.py:_ranks). The result is then exactly the plain
-// version's (ops/binarize.py:window_percentile_reference).
-//
-// The selection counts ranks: value v of the window is the r-th smallest
-// for every r in [less, less + equal), where less and equal count the
-// window's values below and equal to v. That is right for ties and for any
-// window, with no sort and no register array whose size depends on n. A
-// window with a NaN has no rank; the kernel writes NaN there and sets bit
-// 1 of `error`, which the wrapper reads once after the launch and raises
-// on (the plain version's caller checks the same on the CPU).
+// values the kernel takes the lo-th and hi-th smallest (0-based, hi <= lo
+// + 1) and writes v_lo * w_lo + v_hi * w_hi, each product and the sum
+// rounded once (__fmul_rn, __fadd_rn: no FMA is contracted), which is
+// jnp.percentile's 'linear' method when the wrapper computes lo, hi and
+// the weights as JAX does (ops/binarize.py:_ranks). An order statistic is
+// the same value whichever selection finds it, so every route gives the
+// plain version's result (ops/binarize.py:window_percentile_reference) bit
+// for bit. The one freedom: where +0.0 and -0.0 tie (they compare equal),
+// a route may return either zero, as the plain version's sort may order
+// them either way. A window with a NaN has no rank; every route writes
+// NaN there and sets bit 1 of `error`, which the wrapper reads once after
+// the launch and raises on (the plain version's caller checks the same on
+// the CPU).
 //
 // What bounds it on the H100: the least work is one read of the map and one
 // write of the result (8 bytes a pixel), against at least n + min(k, n - k + 1)
 // - 2 comparisons a pixel to select an order statistic (Hyafil's bound; 47
 // for n = 40): bytes, 0.0065 ms a pass at the fixture page's zoomed
-// 1982 x 1371. This kernel is the simple one: n^2 comparisons a pixel
-// (1,600 at n = 40), each a shared-memory load, two compares and two adds.
-//   - A block takes a TW x TH = 32 x 8 output tile, a thread a pixel, and
-//     stages the tile with its reflect halo ((TH + sh - 1) x (TW + sw - 1)
-//     floats: 3.6 KB for (20, 2), 1.8 KB for (2, 20)) in shared memory, a
-//     warp on consecutive addresses of a row. A warp's lanes then read
-//     consecutive words of one row at every step of the count: no bank
-//     conflict.
-//   - The window's columns are a template constant where sw == 2 (the
-//     first of nlbin's two passes), so that loop unrolls; with sw a
-//     runtime 2 the pass took 2.83 ms against 1.30 for (2, 20) on an H100.
-//   - A window whose tile and halo exceed the card's shared memory a block
-//     (a range of over ~1,700 for (range, 2)) is read straight from device
-//     memory through the reflect indices instead ("direct"); every range
-//     the CLI takes runs on the kernel.
-// Later work (not done): the two passes fused into one launch, a sorting
-// network in registers for n <= 64, a selection that reuses the window of
-// the pixel before (a sliding histogram).
+// 1982 x 1371.
+//
+// The first design (the "staged" and "direct" routes below) counts
+// ranks: each of a pixel's n values against all n, n^2 comparisons a pixel
+// (1,600 shared-memory loads at n = 40, 4.35 G a pass at the fixture page),
+// which no tiling brings under ~0.6 ms; it ran at 1.02-1.05 ms, 160x its
+// bound. Neighbouring windows share all but one line, so the "sliding"
+// route, the one nlbin's windows take, keeps each line of the window
+// sorted and slides it:
+// - it takes every window with a side of 1 or 2 (s = that side, r the
+//   other): "vertical" when sw <= 2 (the runs are columns of r rows,
+//   sliding down), else "horizontal" (rows of r columns, sliding right);
+// - a warp takes 32 lines across (33 - s outputs: with s = 2 the last lane
+//   only carries the run its left neighbour needs) and kSlideSteps outputs
+//   along them; it stages its strip with the reflect pad (the reflect()
+//   index, so any pad, however wide, is exact) in shared memory as rows of
+//   kStride = 33 words, one a lane, read from device memory by lanes on
+//   consecutive addresses (a horizontal strip is transposed on the way in
+//   and out, the odd stride keeping both directions free of bank
+//   conflicts);
+// - each lane keeps its line's r values as a sorted run in shared memory,
+//   value i at run[32 i + lane] (its own bank whatever i), built once by
+//   insertion and then slid one step an output: the leaving value is found
+//   by binary search and the entering one shifted into place, O(r) a step
+//   with no sort; a NaN enters the run as +inf and is counted;
+// - the lo-th and hi-th of the union of the lane's run and its right
+//   neighbour's (s = 2) come by a merge-path binary search over the two
+//   runs, O(log r), the same number of steps in every lane; two __syncwarp
+//   a step order the neighbour's reads against the next slide, and no
+//   block barrier is needed: each warp runs alone;
+// - each output is written into the strip's spent row (the row that left
+//   the window that step) and the strip is written out coalesced at the
+//   end.
+// About r + log r operations a pixel against 4 r^2. A block holds up to
+// kSlideWarps warps, fewer where their strips and runs exceed the card's
+// shared memory a block; a window whose single warp exceeds it (a range
+// over 877, e.g. the (1800, 2) window) and every window with both sides
+// over 2 keep the rank-count routes:
+//   - "staged": a block takes a TW x TH = 32 x 8 output tile, a thread a
+//     pixel, and stages the tile with its reflect halo ((TH + sh - 1) x
+//     (TW + sw - 1) floats) in shared memory, a warp on consecutive
+//     addresses of a row, so a warp's lanes read consecutive words of one
+//     row at every step of the count; the window's columns are a template
+//     constant where sw == 2;
+//   - "direct": a window whose tile and halo exceed the card's shared
+//     memory a block is read straight from device memory through the
+//     reflect indices.
+// The route is the first of sliding, staged and direct that takes the
+// window on the card (route_geometry(); the wrapper mirrors it in
+// ops/binarize.py:plan and passes it in).
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 namespace {
 
 constexpr int TW = 32;
 constexpr int TH = 8;
 constexpr int kStaticSmem = 48 * 1024;
+constexpr int kSlideSteps = 32;  // outputs a warp slides along its lines
+constexpr int kSlideWarps = 4;   // warps a block on the sliding route, at most
+constexpr int kStride = 33;      // words a staged row of a sliding strip
+
+enum Route { kDirect = 0, kStaged = 1, kSliding = 2 };
 
 // numpy's 'reflect' index into [0, n) for any i
 __device__ __forceinline__ int reflect(int i, int n) {
@@ -66,6 +104,13 @@ __device__ __forceinline__ int reflect(int i, int n) {
 
 size_t staged_bytes(int sh, int sw) {
   return (size_t)(TH + sh - 1) * (size_t)(TW + sw - 1) * sizeof(float);
+}
+
+// The sliding route's shared memory a warp for lines of r values: its
+// strip, kSlideSteps + r rows of kStride words (a spare row, then the
+// kSlideSteps + r - 1 the outputs' windows cover), and 32 runs of r.
+__host__ __device__ inline size_t slide_warp_bytes(int r) {
+  return ((size_t)(kSlideSteps + r) * kStride + (size_t)32 * r) * sizeof(float);
 }
 
 // SW: the window's columns when known at compile time (2), else 0 (sw)
@@ -122,71 +167,287 @@ percentile_kernel(const float* __restrict__ in, float* __restrict__ out, int H, 
   out[(size_t)blockIdx.z * H * W + (size_t)y * W + x] = result;
 }
 
+// The sliding route: VERTICAL takes (r, S) windows (runs down columns),
+// else (S, r) (runs along rows); S, the short side, is 1 or 2. Warp w of
+// block b takes unit b * warps + w: map n, strip `strip` of kSlideSteps
+// outputs along the runs, group `group` of 33 - S outputs across them.
+template <bool VERTICAL, int S>
+__global__ void __launch_bounds__(32 * kSlideWarps)
+percentile_sliding_kernel(const float* __restrict__ in, float* __restrict__ out, int N, int H,
+                          int W, int r, int lo, int hi, float w_lo, float w_hi,
+                          int* __restrict__ error) {
+  extern __shared__ float smem[];
+  constexpr int kOuts = 33 - S;
+  const int lane = threadIdx.x & 31;
+  const int n_long = VERTICAL ? H : W, n_short = VERTICAL ? W : H;
+  const int groups = (n_short + kOuts - 1) / kOuts;
+  const int strips = (n_long + kSlideSteps - 1) / kSlideSteps;
+  const long long unit = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (unit >= (long long)N * strips * groups) return;  // the same for every lane
+  const int group = (int)(unit % groups);
+  const int strip = (int)(unit / groups % strips);
+  const int n = (int)(unit / groups / strips);
+  const int q0 = group * kOuts;         // the first line across
+  const int p0 = strip * kSlideSteps;   // the first output along
+  const int steps = min(kSlideSteps, n_long - p0);
+  const int outs = min(kOuts, n_short - q0);
+  const int before = (r - 1) / 2;       // the window's pad before its output
+  const float* src = in + (size_t)n * H * W;
+  float* dst = out + (size_t)n * H * W;
+  float* buf = smem + (threadIdx.x >> 5) * (slide_warp_bytes(r) / sizeof(float));
+  float* run = buf + (size_t)(kSlideSteps + r) * kStride + lane;  // value i at run[32 i]
+  const float inf = __int_as_float(0x7f800000);
+
+  // stage row 1 + i of the strip: position p0 - before + i along, i < rows
+  const int rows = steps + r - 1;
+  if (VERTICAL) {
+    const int x = reflect(q0 + lane, W);
+    for (int i = 0; i < rows; ++i)
+      buf[(1 + i) * kStride + lane] = src[(size_t)reflect(p0 - before + i, H) * W + x];
+  } else {
+    for (int c = 0; c < 32; ++c) {
+      const float* row = src + (size_t)reflect(q0 + c, H) * W;
+      for (int i = lane; i < rows; i += 32)
+        buf[(1 + i) * kStride + c] = row[reflect(p0 - before + i, W)];
+    }
+  }
+  __syncwarp();
+
+  // this lane's run: the first window's r values by insertion (NaN as +inf)
+  int nans = 0;  // NaNs in this lane's run
+  for (int i = 0; i < r; ++i) {
+    float v = buf[(1 + i) * kStride + lane];
+    if (v != v) {
+      ++nans;
+      v = inf;
+    }
+    int j = i;
+    for (; j > 0; --j) {
+      const float u = run[32 * (j - 1)];
+      if (u <= v) break;
+      run[32 * j] = u;
+    }
+    run[32 * j] = v;
+  }
+
+  bool had_nan = false;
+  for (int p = 0; p < steps; ++p) {
+    if (p > 0) {  // strip row p leaves the window, row p + r enters
+      float gone = buf[p * kStride + lane];
+      float come = buf[(p + r) * kStride + lane];
+      if (gone != gone) {
+        --nans;
+        gone = inf;
+      }
+      if (come != come) {
+        ++nans;
+        come = inf;
+      }
+      int a = 0, b = r - 1;  // the first slot not below `gone`: it holds gone
+      while (a < b) {
+        const int m = (a + b) >> 1;
+        if (run[32 * m] < gone) a = m + 1;
+        else b = m;
+      }
+      int j = a;
+      if (come > gone) {
+        for (; j + 1 < r; ++j) {
+          const float u = run[32 * (j + 1)];
+          if (u >= come) break;
+          run[32 * j] = u;
+        }
+      } else {
+        for (; j > 0; --j) {
+          const float u = run[32 * (j - 1)];
+          if (u <= come) break;
+          run[32 * j] = u;
+        }
+      }
+      run[32 * j] = come;
+    }
+    __syncwarp();
+    const int window_nans = nans + (S == 2 ? __shfl_down_sync(0xffffffffu, nans, 1) : 0);
+    float result = 0.f;
+    if (lane < outs) {
+      float v_lo, v_hi;
+      if (S == 1) {
+        v_lo = run[32 * lo];
+        v_hi = run[32 * hi];
+      } else {
+        // the union of this run (A) and the next lane's (B): i of its lo
+        // smallest come from A (A first on ties), found by merge path
+        const float* A = run;
+        const float* B = run + 1;
+        int a = max(0, lo - r), b = min(lo, r);
+        while (a < b) {
+          const int m = (a + b) >> 1;
+          if (A[32 * m] <= B[32 * (lo - m - 1)]) a = m + 1;
+          else b = m;
+        }
+        int i = a, j = lo - a;
+        const bool from_a = i < r && (j >= r || A[32 * i] <= B[32 * j]);
+        v_lo = from_a ? A[32 * i] : B[32 * j];
+        if (from_a) ++i;
+        else ++j;
+        v_hi = hi == lo ? v_lo : (i < r && (j >= r || A[32 * i] <= B[32 * j])) ? A[32 * i]
+                                                                              : B[32 * j];
+      }
+      if (window_nans > 0) {
+        result = __int_as_float(0x7fc00000);
+        had_nan = true;
+      } else {
+        result = __fadd_rn(__fmul_rn(v_lo, w_lo), __fmul_rn(v_hi, w_hi));
+      }
+    }
+    __syncwarp();  // the next lane has read this run
+    buf[p * kStride + lane] = result;  // row p is spent: it left this step
+  }
+  __syncwarp();
+
+  // write the strip's outputs, row p of the strip for output p0 + p
+  if (VERTICAL) {
+    if (lane < outs)
+      for (int p = 0; p < steps; ++p) dst[(size_t)(p0 + p) * W + q0 + lane] = buf[p * kStride + lane];
+  } else {
+    for (int c = 0; c < outs; ++c) {
+      float* row = dst + (size_t)(q0 + c) * W + p0;
+      for (int p = lane; p < steps; p += 32) row[p] = buf[p * kStride + c];
+    }
+  }
+  if (had_nan) atomicOr(error, 1);
+}
+
 bool valid(int N, int H, int W, int sh, int sw, int lo, int hi) {
   return N > 0 && H > 0 && W > 0 && sh > 0 && sw > 0 && N <= 65535 &&
          (long long)sh * sw <= (1LL << 30) && 0 <= lo && lo <= hi && hi < sh * sw;
 }
 
-// The route a window takes on `device`: staged in shared memory when its
-// tile and halo fit a block, else direct; and the dynamic shared memory.
-cudaError_t route(int sh, int sw, int device, bool* staged, size_t* smem) {
+struct Geometry {
+  int route;
+  int tw, th;        // the output tile of a warp (sliding) or of a block (staged, direct)
+  int tiles;         // tiles a block: its warps on the sliding route, else 1
+  size_t smem;       // dynamic shared memory a block in bytes
+  long long blocks;
+};
+
+// The launch of `route` for N (H, W) maps and a window (sh, sw) on a card
+// whose blocks may have `optin` bytes of shared memory; false when the
+// route does not take the window there.
+bool route_geometry(int route, int N, int H, int W, int sh, int sw, int optin, Geometry* g) {
+  const long long tiles_2d = (long long)((W + TW - 1) / TW) * ((H + TH - 1) / TH) * N;
+  switch (route) {
+    case kSliding: {
+      if (sw > 2 && sh > 2) return false;
+      const bool vertical = sw <= 2;
+      const int r = vertical ? sh : sw, s = vertical ? sw : sh;
+      const int warps = (int)std::min<size_t>(kSlideWarps, (size_t)optin / slide_warp_bytes(r));
+      if (warps < 1) return false;
+      const int outs = 33 - s;
+      const int tw = vertical ? outs : kSlideSteps, th = vertical ? kSlideSteps : outs;
+      const long long units = (long long)((W + tw - 1) / tw) * ((H + th - 1) / th) * N;
+      *g = {kSliding, tw, th, warps, warps * slide_warp_bytes(r), (units + warps - 1) / warps};
+      return true;
+    }
+    case kStaged:
+      if (staged_bytes(sh, sw) > (size_t)optin) return false;
+      *g = {kStaged, TW, TH, 1, staged_bytes(sh, sw), tiles_2d};
+      return true;
+    case kDirect:
+      *g = {kDirect, TW, TH, 1, 0, tiles_2d};
+      return true;
+    default:
+      return false;
+  }
+}
+
+// The route a window takes on `device`: the first of sliding, staged and
+// direct that takes it.
+cudaError_t geometry(int N, int H, int W, int sh, int sw, int device, Geometry* g) {
   int optin = 0;
   cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
-  const size_t bytes = staged_bytes(sh, sw);
-  *staged = bytes <= (size_t)optin;
-  *smem = *staged ? bytes : 0;
+  for (int route = kSliding; !route_geometry(route, N, H, W, sh, sw, optin, g); --route) {
+  }
   return cudaSuccess;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= (size_t)kStaticSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <bool VERTICAL, int S>
+cudaError_t launch_sliding(const float* src, float* dst, int N, int H, int W, int r, int lo,
+                           int hi, float w_lo, float w_hi, int* error, const Geometry& g,
+                           cudaStream_t stream) {
+  auto kernel = percentile_sliding_kernel<VERTICAL, S>;
+  cudaError_t err = allow_smem(kernel, g.smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)g.blocks, 32 * g.tiles, g.smem, stream>>>(src, dst, N, H, W, r, lo, hi,
+                                                               w_lo, w_hi, error);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// The launch a window of (sh, sw) takes on `device`: staged (1) or direct
-// (0), its dynamic shared memory in bytes, and the output tile.
-extern "C" int percentile_geometry(int sh, int sw, int device, int* staged, int* smem, int* tw,
-                                   int* th) {
-  if (sh <= 0 || sw <= 0) return (int)cudaErrorInvalidValue;
-  bool s;
-  size_t bytes;
-  cudaError_t err = route(sh, sw, device, &s, &bytes);
+// The launch N (H, W) maps and a window of (sh, sw) take on `device`: the
+// route (0 direct, 1 staged, 2 sliding), the output tile (x, y) of a warp
+// (sliding) or a block, the tiles a block, its dynamic shared memory in
+// bytes and the blocks.
+extern "C" int percentile_geometry(int N, int H, int W, int sh, int sw, int device, int* route,
+                                   int* tw, int* th, int* tiles, int* smem, long long* blocks) {
+  if (N <= 0 || H <= 0 || W <= 0 || sh <= 0 || sw <= 0) return (int)cudaErrorInvalidValue;
+  Geometry g;
+  cudaError_t err = geometry(N, H, W, sh, sw, device, &g);
   if (err != cudaSuccess) return (int)err;
-  *staged = s ? 1 : 0;
-  *smem = (int)bytes;
-  *tw = TW;
-  *th = TH;
+  *route = g.route;
+  *tw = g.tw;
+  *th = g.th;
+  *tiles = g.tiles;
+  *smem = (int)g.smem;
+  *blocks = g.blocks;
   return 0;
 }
 
 // in, out: (N, H, W) fp32 contiguous on `device`; error: one int32, zeroed
-// by the caller, which gets bit 1 when a window held a NaN. lo <= hi are
-// the 0-based ranks of the two order statistics, w_lo and w_hi their
-// weights. Returns a cudaError_t.
+// by the caller, which gets bit 1 when a window held a NaN. lo <= hi <= lo
+// + 1 are the 0-based ranks of the two order statistics, w_lo and w_hi
+// their weights; route 0 (direct), 1 (staged) or 2 (sliding), which must
+// take the window on the card (the wrapper passes the route geometry()
+// gives, as its plan mirrors it). Returns a cudaError_t.
 extern "C" int percentile_forward(const void* in, void* out, void* error, int N, int H, int W,
                                   int sh, int sw, int lo, int hi, float w_lo, float w_hi,
-                                  int device, void* stream) {
-  if (!valid(N, H, W, sh, sw, lo, hi)) return (int)cudaErrorInvalidValue;
+                                  int route, int device, void* stream) {
+  if (!valid(N, H, W, sh, sw, lo, hi) || hi > lo + 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  bool staged;
-  size_t smem;
-  err = route(sh, sw, device, &staged, &smem);
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, N);
-  const dim3 block(TW, TH);
+  Geometry g;
+  if (!route_geometry(route, N, H, W, sh, sw, optin, &g)) return (int)cudaErrorInvalidValue;
   const float* src = static_cast<const float*>(in);
   float* dst = static_cast<float*>(out);
   int* err_bits = static_cast<int*>(error);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!staged) {
+  if (g.route == kSliding) {
+    const bool vertical = sw <= 2;
+    const int r = vertical ? sh : sw, side = vertical ? sw : sh;
+    auto launch = vertical ? (side == 2 ? launch_sliding<true, 2> : launch_sliding<true, 1>)
+                           : (side == 2 ? launch_sliding<false, 2> : launch_sliding<false, 1>);
+    return (int)launch(src, dst, N, H, W, r, lo, hi, w_lo, w_hi, err_bits, g, s);
+  }
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, N);
+  const dim3 block(TW, TH);
+  if (g.route == kDirect) {
     percentile_kernel<false, 0><<<grid, block, 0, s>>>(src, dst, H, W, sh, sw, lo, hi, w_lo,
                                                        w_hi, err_bits);
     return (int)cudaGetLastError();
   }
   auto kernel = sw == 2 ? percentile_kernel<true, 2> : percentile_kernel<true, 0>;
-  if (smem > (size_t)kStaticSmem) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<grid, block, smem, s>>>(src, dst, H, W, sh, sw, lo, hi, w_lo, w_hi, err_bits);
+  err = allow_smem(kernel, g.smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, block, g.smem, s>>>(src, dst, H, W, sh, sw, lo, hi, w_lo, w_hi, err_bits);
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,21 @@ tensor it launches the hand-written kernel of ``csrc/percentile.cu`` (twice
 a page) or raises; on a CPU tensor it runs
 :func:`window_percentile_reference`, the plain PyTorch version. Everything
 else is torch ops, the Gaussians inside ``_precise_fp32`` (no TF32).
+
+The kernel replaces ``_window_percentile`` (every shifted copy stacked and
+sorted across). Its bound is bytes, one read and one write a pixel. Its
+first design counted ranks, n^2 comparisons a pixel for a window of n
+values, 160 times its bound on a page; nlbin's windows, ``(range, 2)`` and
+``(2, range)``, now take the "sliding" route: a warp keeps each of its 32
+lines of the window sorted in shared memory and slides it one value an
+output, and takes the two ranks from the union of two neighbouring runs by
+a merge-path search, about r + log r operations a pixel. Windows with both
+sides over 2, and those whose runs exceed a block's shared memory (a range
+over ``SLIDE_MAX_RANGE``), keep the rank count ("staged" in shared
+memory, or "direct" from device memory). Any map, however much narrower
+than the window's pad, takes the route its window takes: every route reads
+it through numpy's reflect index. :func:`plan` mirrors the launch in plain
+Python; :func:`geometry` asks the source.
 """
 import ctypes
 import functools
@@ -29,10 +44,31 @@ import torch.nn.functional as F
 
 from kraken_tpu_torch.ops.build import raw_stream
 
-__all__ = ['nlbin_device', 'nlbin_batch', 'window_percentile', 'window_percentile_reference']
+__all__ = ['nlbin_device', 'nlbin_batch', 'window_percentile', 'window_percentile_reference',
+           'plan', 'geometry', 'ROUTES']
 
-# the kernel's output tile (csrc/percentile.cu)
+# the kernel's routes (csrc/percentile.cu, by their codes there) and its
+# launch: the rank count's output tile of a block (staged, direct); the
+# sliding route's warp, SLIDE_STEPS outputs along 33 - s lines of a window
+# with a side s of 1 or 2, up to SLIDE_WARPS warps a block, each with its
+# strip (SLIDE_STEPS + r rows of STRIDE words) and 32 runs of r values in
+# shared memory, of which an H100 block may have SMEM_OPTIN bytes
+ROUTES = ('direct', 'staged', 'sliding')
 TILE = (32, 8)
+SLIDE_STEPS = 32
+SLIDE_WARPS = 4
+STRIDE = 33
+SMEM_OPTIN = 232448
+
+
+def slide_warp_bytes(r: int) -> int:
+    """Shared memory of one sliding warp for lines of r values."""
+    return ((SLIDE_STEPS + r) * STRIDE + 32 * r) * 4
+
+
+# the longest line a sliding warp takes on an H100: (877, 2) slides,
+# (878, 2) counts ranks
+SLIDE_MAX_RANGE = (SMEM_OPTIN // 4 - SLIDE_STEPS * STRIDE) // (STRIDE + 32)
 
 
 def _reflect(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -90,22 +126,56 @@ def window_percentile_reference(x: torch.Tensor, perc: float,
     return ordered[lo] * w_lo + ordered[hi] * w_hi
 
 
-def geometry(size: tuple[int, int], device_index: int = 0) -> tuple[str, int, tuple[int, int]]:
-    """The route the kernel takes for a window of `size` on a card, as its
-    source answers it (``percentile_geometry``): 'staged' (its output tile
-    and reflect halo in shared memory) or 'direct' (a window larger than a
-    block's shared memory, read from device memory), with the dynamic
-    shared memory a block and the output tile."""
+def plan(N: int, H: int, W: int, size: tuple[int, int]
+         ) -> tuple[str, tuple[int, int], int, int, int]:
+    """
+    The launch the kernel takes for N (H, W) maps and a window of ``size =
+    (sh, sw)`` on an H100, as ``csrc/percentile.cu`` computes it: (route,
+    output tile (x, y), tiles a block, dynamic shared memory bytes a block,
+    blocks). The route is the first that takes the window:
+
+    - "sliding", a window with a side s of 1 or 2 whose warp fits a block:
+      "vertical" when sw <= 2 (runs of sh down the columns; a warp's tile
+      33 - s columns by SLIDE_STEPS rows), else "horizontal" (runs of sw
+      along the rows; SLIDE_STEPS columns by 33 - s rows); block b takes
+      the warp tiles ``b * tiles`` to ``+ tiles``, tile u of map
+      ``u // (strips * groups)``, strip ``u // groups % strips`` along the
+      runs and group ``u % groups`` across them;
+    - "staged", a 32 x 8 tile and its reflect halo in shared memory;
+    - "direct", the same tile read from device memory.
+    """
+    sh, sw = size
+    if sh <= 2 or sw <= 2:
+        vertical = sw <= 2
+        r, s = (sh, sw) if vertical else (sw, sh)
+        warps = min(SLIDE_WARPS, SMEM_OPTIN // slide_warp_bytes(r))
+        if warps:
+            tile = (33 - s, SLIDE_STEPS) if vertical else (SLIDE_STEPS, 33 - s)
+            units = N * -(-W // tile[0]) * -(-H // tile[1])
+            return 'sliding', tile, warps, warps * slide_warp_bytes(r), -(-units // warps)
+    blocks = N * -(-W // TILE[0]) * -(-H // TILE[1])
+    staged = (TILE[1] + sh - 1) * (TILE[0] + sw - 1) * 4
+    if staged <= SMEM_OPTIN:
+        return 'staged', TILE, 1, staged, blocks
+    return 'direct', TILE, 1, 0, blocks
+
+
+def geometry(N: int, H: int, W: int, size: tuple[int, int], device_index: int = 0
+             ) -> tuple[str, tuple[int, int], int, int, int]:
+    """:func:`plan` as the kernel source answers it on a card
+    (``percentile_geometry``, which reads the card's shared memory a
+    block)."""
     from kraken_tpu_torch.ops.build import load_library
     fn = load_library('percentile').percentile_geometry
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 5 \
+        + [ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int
-    out = [ctypes.c_int() for _ in range(4)]
-    err = fn(size[0], size[1], device_index, *map(ctypes.byref, out))
+    out = [ctypes.c_int() for _ in range(5)] + [ctypes.c_longlong()]
+    err = fn(N, H, W, size[0], size[1], device_index, *map(ctypes.byref, out))
     if err != 0:
-        raise ValueError(f'percentile_geometry refused the window {size} (cudaError {err})')
-    staged, smem, tw, th = (v.value for v in out)
-    return ('staged' if staged else 'direct'), smem, (tw, th)
+        raise ValueError(f'percentile_geometry refused {(N, H, W)} {size} (cudaError {err})')
+    route, tw, th, tiles, smem, blocks = (v.value for v in out)
+    return ROUTES[route], (tw, th), tiles, smem, blocks
 
 
 @functools.lru_cache(maxsize=None)
@@ -114,7 +184,7 @@ def _kernel():
     from kraken_tpu_torch.ops.build import load_library
     fn = load_library('percentile').percentile_forward
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 \
-        + [ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -134,11 +204,13 @@ def window_percentile(x: torch.Tensor, perc: float, size: tuple[int, int]) -> to
         size: the window (sh, sw), both positive.
 
     On a CPU tensor this is the plain version. On a CUDA tensor it launches
-    the kernel of ``csrc/percentile.cu`` on the current stream, adds one to
-    ``window_percentile.launches`` and waits for the kernel's error word.
-    It raises on a type, shape, layout or window the kernel does not take
-    (contiguous tensors), on a NaN in the maps (a window with a NaN has no
-    percentile rank; the kernel reports it) and when the launch is refused.
+    the kernel of ``csrc/percentile.cu`` on the current stream, on the
+    route :func:`plan` gives, adds one to ``window_percentile.launches``
+    and to the route's count in ``window_percentile.route_launches``, and
+    waits for the kernel's error word. It raises on a type, shape, layout
+    or window the kernel does not take (contiguous tensors), on a NaN in
+    the maps (a window with a NaN has no percentile rank; the kernel
+    reports it) and when the launch is refused.
     """
     if x.dim() != 3:
         raise ValueError(f'window_percentile takes (N, H, W) maps, not {tuple(x.shape)}')
@@ -159,22 +231,34 @@ def window_percentile(x: torch.Tensor, perc: float, size: tuple[int, int]) -> to
         raise ValueError(f'window_percentile runs on cpu or cuda tensors, not {device}')
     if not x.is_contiguous():
         raise ValueError('window_percentile takes contiguous maps')
-    out = torch.empty_like(x)
     if x.numel() == 0:
-        return out
+        return torch.empty_like(x)
+    return _launch(x, perc, (sh, sw), plan(N, H, W, (sh, sw))[0])
+
+
+def _launch(x: torch.Tensor, perc: float, size: tuple[int, int], route: str) -> torch.Tensor:
+    """One launch of the kernel on `route` for maps :func:`window_percentile`
+    has checked (non-empty, contiguous, on the card), counted, with its
+    error word read; the source refuses a route that does not take the
+    window."""
+    N, H, W = x.shape
+    sh, sw = size
+    out = torch.empty_like(x)
     lo, hi, w_lo, w_hi = _ranks(perc, sh * sw)
-    error = torch.zeros(1, dtype=torch.int32, device=device)
+    error = torch.zeros(1, dtype=torch.int32, device=x.device)
     err = _kernel()(x.data_ptr(), out.data_ptr(), error.data_ptr(), N, H, W, sh, sw, lo, hi,
-                    w_lo, w_hi, device.index, raw_stream(device.index))
+                    w_lo, w_hi, ROUTES.index(route), x.device.index, raw_stream(x.device.index))
     if err != 0:
-        raise RuntimeError(f'percentile kernel launch failed: cudaError {err}')
+        raise RuntimeError(f'percentile kernel launch failed on the {route} route: cudaError {err}')
     window_percentile.launches += 1
+    window_percentile.route_launches[route] += 1
     if int(error.item()):
         raise ValueError('window_percentile refuses maps with NaN')
     return out
 
 
 window_percentile.launches = 0
+window_percentile.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def _gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:

@@ -24,6 +24,22 @@ L_max + 1) holds line n's trellis in its top-left (T_n + 1, L_n + 1) block
 On a CUDA tensor :func:`trellis` launches the hand-written kernel of
 ``csrc/trellis.cu`` or raises; on a CPU tensor it runs
 :func:`trellis_reference`, the plain PyTorch version.
+
+The kernel is bound by the chain of T dependent rows, not by bytes or
+operations. Its first design, a block a line (the "block" route), spent a
+frame on a block barrier, a round trip through shared memory and a gather
+of the next frame's emissions from device memory; the "warp" route, which
+every page of lines up to 255 tokens takes, gives a line one warp, holds
+the row in registers (lane l the columns l + 32 k, k < K) and passes each
+column's left neighbour by a shuffle; the line's emission rows come
+``CHUNK`` frames at a time, copied coalesced and asynchronously into
+shared memory while the chunk before is computed, and each column reads
+its token from the staged row. Lines of 256 to 2,047 tokens, and codecs
+whose chunks exceed a block's shared memory (over 1,815 classes), keep
+the block route; longer lines take the "long" route. :func:`plan` mirrors
+in plain Python the launch the source takes (its route, from the page's
+longest line and its classes) and :func:`geometry` asks the source
+itself.
 """
 import ctypes
 import functools
@@ -34,7 +50,28 @@ import torch
 
 from kraken_tpu_torch.ops.build import raw_stream
 
-__all__ = ['trellis', 'trellis_reference', 'pad', 'blocks']
+__all__ = ['trellis', 'trellis_reference', 'pad', 'blocks', 'plan', 'geometry', 'ROUTES']
+
+# the kernel's routes (csrc/trellis.cu), in the order the source tries
+# them, and their constants: a warp a line for up to 32 * WARP_MAX_K
+# columns (up to WARP_LINES lines a block, each with two buffers of CHUNK
+# emission rows in shared memory, of which an H100 block may have
+# SMEM_OPTIN bytes); a block a line, a thread a column (COLS_PER_THREAD
+# above MAX_THREADS columns), up to COLS_PER_THREAD * MAX_THREADS columns;
+# the long kernel for any length
+ROUTES = ('warp', 'block', 'long')
+WARP_MAX_K = 8
+WARP_LINES = 4
+CHUNK = 16
+MAX_THREADS = 1024
+COLS_PER_THREAD = 2
+SMEM_OPTIN = 232448
+
+
+def chunk_floats(C: int) -> int:
+    """A warp's chunk buffer on the warp route, in floats: CHUNK rows of C
+    floats and 3 to align its first 16-byte copy, rounded up to 16 bytes."""
+    return (CHUNK * C + 6) // 4 * 4
 
 
 def _check(emission: torch.Tensor, tokens: torch.Tensor, frame_lens: torch.Tensor,
@@ -112,12 +149,55 @@ def trellis_reference(emission: torch.Tensor, tokens: torch.Tensor,
     return out
 
 
+def plan(N: int, L_max: int, C: int) -> tuple[str, int, int, int, int, int]:
+    """
+    The launch the kernel takes for N lines of up to L_max tokens over C
+    classes on an H100, as ``csrc/trellis.cu`` computes it: (route, token
+    columns a thread, threads a block, lines a block, dynamic shared memory
+    bytes a block, blocks). On the "warp" route block b takes lines
+    ``b * WARP_LINES`` to ``+ WARP_LINES``, a warp each, lane l the columns
+    ``l + 32 k`` for k < K, K the smallest of 1, 2, 4 and 8 that covers the
+    L_max + 1 columns, and each warp two buffers of :func:`chunk_floats`
+    (up to WARP_LINES warps a block, as many as their buffers fit); on the
+    "block" and "long" routes block n takes line n.
+    """
+    cols = L_max + 1
+    warp_bytes = 2 * chunk_floats(C) * 4
+    lines = min(WARP_LINES, SMEM_OPTIN // warp_bytes)
+    if cols <= 32 * WARP_MAX_K and lines:
+        k = 1
+        while 32 * k < cols:
+            k *= 2
+        return 'warp', k, 32 * lines, lines, lines * warp_bytes, -(-N // lines)
+    if cols <= COLS_PER_THREAD * MAX_THREADS:
+        cpt = 2 if cols > MAX_THREADS else 1
+        per = -(-cols // cpt)
+        return 'block', cpt, -(-per // 32) * 32, 1, 2 * cols * 4, N
+    return 'long', -(-cols // MAX_THREADS), MAX_THREADS, 1, 0, N
+
+
+def geometry(N: int, L_max: int, C: int, device_index: int = 0
+             ) -> tuple[str, int, int, int, int, int]:
+    """:func:`plan` as the kernel source answers it on a card
+    (``trellis_geometry``, which reads the card's shared memory a
+    block)."""
+    from kraken_tpu_torch.ops.build import load_library
+    fn = load_library('trellis').trellis_geometry
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 6
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int() for _ in range(6)]
+    if fn(N, L_max, C, device_index, *map(ctypes.byref, out)) != 0:
+        raise ValueError(f'trellis_geometry refused N={N} L_max={L_max} C={C}')
+    route, *rest = (v.value for v in out)
+    return (ROUTES[route], *rest)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     """The kernel's C entry point, with its argument types (built at first use)."""
     from kraken_tpu_torch.ops.build import load_library
     fn = load_library('trellis').trellis_forward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -129,14 +209,15 @@ def trellis(emission: torch.Tensor, tokens: torch.Tensor, frame_lens: torch.Tens
     :func:`trellis_reference`).
 
     On a CPU tensor this is the plain version. On a CUDA tensor it launches
-    the kernel of ``csrc/trellis.cu`` on the current stream, adds one to
-    ``trellis.launches`` and waits for it (the kernel checks each line's
-    counts, tokens and emissions and reports what it refuses). It raises on
-    a type, shape, layout or device the kernel does not take (contiguous
-    tensors), on counts out of range, tokens outside the classes and
-    emissions that are not finite (as the plain version's caller does on
-    the CPU), and when the launch is refused. A line may have any number of
-    tokens.
+    the kernel of ``csrc/trellis.cu`` on the current stream, on the route
+    :func:`plan` gives, adds one to ``trellis.launches`` and to the route's
+    count in ``trellis.route_launches`` and waits for it (the kernel checks
+    each line's counts, tokens and emissions and reports what it refuses).
+    It raises on a type, shape, layout or device the kernel does not take
+    (contiguous tensors), on counts out of range, tokens outside the
+    classes and emissions that are not finite (as the plain version's
+    caller does on the CPU), and when the launch is refused. A line may
+    have any number of tokens.
     """
     _check(emission, tokens, frame_lens, token_lens)
     device = emission.device
@@ -148,17 +229,29 @@ def trellis(emission: torch.Tensor, tokens: torch.Tensor, frame_lens: torch.Tens
     if not all(t.is_contiguous() for t in (emission, tokens, frame_lens, token_lens)):
         raise ValueError('trellis takes contiguous tensors')
     N, T_max, C = emission.shape
+    if N == 0:
+        return torch.empty((0, T_max + 1, tokens.shape[1] + 1), dtype=torch.float32,
+                           device=device)
+    return _launch(emission, tokens, frame_lens, token_lens, plan(N, tokens.shape[1], C)[0])
+
+
+def _launch(emission: torch.Tensor, tokens: torch.Tensor, frame_lens: torch.Tensor,
+            token_lens: torch.Tensor, route: str) -> torch.Tensor:
+    """One launch of the kernel on `route` for a batch :func:`trellis` has
+    checked (N > 0, contiguous, on the card), counted and waited for; the
+    source refuses a route that does not take the batch."""
+    device = emission.device
+    N, T_max, C = emission.shape
     L_max = tokens.shape[1]
     out = torch.empty((N, T_max + 1, L_max + 1), dtype=torch.float32, device=device)
-    if N == 0:
-        return out
     error = torch.zeros(1, dtype=torch.int32, device=device)
     err = _kernel()(emission.data_ptr(), tokens.data_ptr(), frame_lens.data_ptr(),
                     token_lens.data_ptr(), out.data_ptr(), error.data_ptr(), N, T_max, C, L_max,
-                    device.index, raw_stream(device.index))
+                    ROUTES.index(route), device.index, raw_stream(device.index))
     if err != 0:
-        raise RuntimeError(f'trellis kernel launch failed: cudaError {err}')
+        raise RuntimeError(f'trellis kernel launch failed on the {route} route: cudaError {err}')
     trellis.launches += 1
+    trellis.route_launches[route] += 1
     refused = int(error.item())
     if refused:
         raise ValueError('trellis refuses ' + ', '.join(v for k, v in _REFUSED.items()
@@ -167,6 +260,7 @@ def trellis(emission: torch.Tensor, tokens: torch.Tensor, frame_lens: torch.Tens
 
 
 trellis.launches = 0
+trellis.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def pad(emissions: Sequence[np.ndarray], tokens: Sequence[np.ndarray],

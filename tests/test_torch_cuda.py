@@ -8,6 +8,7 @@ torch is installed, without the suite's conftest:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
+import importlib.util
 from pathlib import Path
 
 import numpy as np
@@ -21,6 +22,17 @@ from kraken_tpu_torch.ops.lstm import (SMEM_PER_CTA, _cluster_smem, _design, _la
 from kraken_tpu_torch.vgsl import VGSLModel
 
 RESOURCES = Path(__file__).resolve().parent / 'resources'
+
+
+def _smoke():
+    """chip_smoke.py, whose case lists (the routes' edges) these tests share."""
+    spec = importlib.util.spec_from_file_location('chip_smoke', RESOURCES.parents[1] / 'chip_smoke.py')
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+SMOKE = _smoke()
 SPEC = '[1,48,0,1 Cr3,13,8 Mp2,2 Cr3,9,16 Mp2,2 S1(1x0)1,3 Lbx32 Lfx24 O1c20]'
 
 
@@ -526,6 +538,68 @@ def test_trellis_kernel_equals_plain(cuda_device, shapes):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('cols', SMOKE.TRELLIS_COLUMNS)
+def test_trellis_routes_equal_plain(cuda_device, cols):
+    """Each route that takes the batch (warp up to 256 columns, block up to
+    2,048, long any) against the plain version and numpy, bit for bit, and
+    the auto route the plan's, counted on it."""
+    from kraken_tpu_torch.align import get_trellis
+    from kraken_tpu_torch.ops.trellis import (ROUTES, _launch, blocks, pad, plan, trellis,
+                                              trellis_reference)
+    L = cols - 1
+    lines = trellis_lines(cols, [(2 * L + 3, L, 40), (0, 3, 40), (1, 1, 40), (5, 9, 40)])
+    args = pad([e for e, _ in lines], [t for _, t in lines], 'cpu')
+    frames, lens = args[2].tolist(), args[3].tolist()
+    ref = trellis_reference(*args)
+    route = plan(*args[1].shape, args[0].shape[2])[0]
+    assert route == ('warp' if cols <= 256 else 'block')
+    before = dict(trellis.route_launches)
+    trellis(*[a.to(cuda_device) for a in args])
+    assert trellis.route_launches == {**before, route: before[route] + 1}
+    for r in ROUTES[ROUTES.index(route):]:
+        out = _launch(*[a.to(cuda_device) for a in args], r).cpu()
+        for (e, t), a, b in zip(lines, blocks(out, frames, lens), blocks(ref, frames, lens)):
+            assert torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+            assert np.array_equal(a.numpy(), get_trellis(e, t)), r
+
+
+@pytest.mark.cuda
+def test_trellis_warp_route_mixed_batch(cuda_device):
+    """Short lines (no frame, one, more tokens than frames) padded beside a
+    255-token line, the warp route's longest (K = 8), bit for bit."""
+    from kraken_tpu_torch.align import get_trellis
+    from kraken_tpu_torch.ops.trellis import blocks, pad, plan, trellis
+    lines = trellis_lines(11, SMOKE.TRELLIS_MIXED)
+    args = pad([e for e, _ in lines], [t for _, t in lines], cuda_device)
+    assert plan(*args[1].shape, args[0].shape[2])[:2] == ('warp', 8)
+    out = trellis(*args).cpu()
+    for (e, t), a in zip(lines, blocks(out, args[2].tolist(), args[3].tolist())):
+        assert np.array_equal(a.numpy(), get_trellis(e, t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('N, L_max, C', [(44, 89, 36), (64, 64, 250), (1, 31, 2), (5, 32, 40),
+                                         (7, 255, 453), (7, 255, 454), (7, 255, 1815),
+                                         (7, 255, 1816), (9, 256, 40),
+                                         (3, 1023, 9), (3, 1024, 9), (2, 2047, 4), (2, 2048, 4),
+                                         (4, 3000, 40)])
+def test_trellis_geometry_matches_its_plan(cuda_device, N, L_max, C):
+    from kraken_tpu_torch.ops.trellis import geometry, plan
+    assert geometry(N, L_max, C, cuda_device.index or 0) == plan(N, L_max, C)
+
+
+@pytest.mark.cuda
+def test_trellis_route_refuses_a_line_too_long(cuda_device):
+    from kraken_tpu_torch.ops.trellis import _launch
+    args = [torch.zeros(1, 4, 5, device=cuda_device),
+            torch.ones(1, 256, dtype=torch.int32, device=cuda_device),
+            torch.tensor([4], dtype=torch.int32, device=cuda_device),
+            torch.tensor([256], dtype=torch.int32, device=cuda_device)]
+    with pytest.raises(RuntimeError):
+        _launch(*args, 'warp')
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('bad', ['nan', 'token_high', 'frames_over', 'no_tokens', 'strided',
                                  'devices'])
 def test_trellis_wrapper_raises(cuda_device, bad):
@@ -658,7 +732,8 @@ def test_trellis_kernel_reads_only_the_blank_and_the_tokens(cuda_device):
 @pytest.mark.cuda
 def test_alignment_on_the_card_equals_the_cpu(cuda_device):
     """The fixture page's transcriptions aligned through overfit_bl on the
-    card and on the CPU: the same records, one trellis launch a predict."""
+    card and on the CPU: the same records, one trellis launch a predict, on
+    the warp route."""
     import json
     from PIL import Image
     from kraken_tpu_torch.configs import RecognitionInferenceConfig
@@ -669,8 +744,10 @@ def test_alignment_on_the_card_equals_the_cpu(cuda_device):
     im = Image.open(RESOURCES / '170025120000003,0074.jpg')
     task = ForcedAlignmentTaskModel.load_model(RESOURCES / 'overfit_bl.safetensors')
     before = trellis.launches
+    routes = dict(trellis.route_launches)
     card = task.predict(im, Segmentation(**page), RecognitionInferenceConfig())
     assert trellis.launches == before + 1 and task.net.device.type == 'cuda'
+    assert trellis.route_launches == {**routes, 'warp': routes['warp'] + 1}
     cpu = task.predict(im, Segmentation(**page), RecognitionInferenceConfig(device='cpu'))
     assert trellis.launches == before + 1
     assert sum(bool(r.prediction) for r in card.lines) > 40
@@ -726,17 +803,68 @@ def test_percentile_kernel_equals_plain(cuda_device, shape, r):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('size, route', [((20, 2), 'staged'), ((2, 20), 'staged'),
-                                         ((33, 2), 'staged'), ((1700, 2), 'staged'),
-                                         ((1800, 2), 'direct'), ((2, 7000), 'direct')])
+@pytest.mark.parametrize('size, route', [((20, 2), 'sliding'), ((2, 20), 'sliding'),
+                                         ((33, 2), 'sliding'), ((877, 2), 'sliding'),
+                                         ((878, 2), 'staged'), ((1700, 2), 'staged'),
+                                         ((3, 3), 'staged'), ((1800, 2), 'direct'),
+                                         ((2, 7000), 'direct')])
 def test_percentile_geometry(cuda_device, size, route):
-    """The kernel's route on an H100: its 32 x 8 output tile and reflect
-    halo in shared memory, or from device memory when they exceed a
-    block's opt-in shared memory (232,448 bytes)."""
+    """The kernel's route on an H100: the sliding runs of a window with a
+    side of 1 or 2 where one warp's strip and runs fit a block's opt-in
+    shared memory (232,448 bytes); else its 32 x 8 output tile and reflect
+    halo in shared memory, or from device memory when they exceed it."""
     from kraken_tpu_torch.ops.binarize import TILE, geometry
-    got, smem, tile = geometry(size, cuda_device.index or 0)
-    assert (got, tile) == (route, TILE)
-    assert smem == ((8 + size[0] - 1) * (32 + size[1] - 1) * 4 if route == 'staged' else 0)
+    got, tile, tiles, smem, _ = geometry(2, 50, 60, size, cuda_device.index or 0)
+    assert got == route
+    if route == 'staged':
+        assert (tile, tiles, smem) == (TILE, 1, (8 + size[0] - 1) * (32 + size[1] - 1) * 4)
+    elif route == 'direct':
+        assert (tile, tiles, smem) == (TILE, 1, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('N, H, W, size', [
+    (1, 1982, 1371, (20, 2)), (1, 1982, 1371, (2, 20)), (3, 40, 64, (20, 2)), (1, 9, 5, (877, 2)),
+    (1, 9, 5, (2, 878)), (1, 40, 70, (207, 2)), (1, 40, 70, (2, 208)), (2, 33, 95, (1, 1)),
+    (3, 33, 33, (3, 33)), (1, 5, 7, (1800, 2)), (1, 5, 7, (2, 1800))])
+def test_percentile_geometry_matches_its_plan(cuda_device, N, H, W, size):
+    from kraken_tpu_torch.ops.binarize import geometry, plan
+    assert geometry(N, H, W, size, cuda_device.index or 0) == plan(N, H, W, size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape, r, values', SMOKE.PERCENTILE_EDGES
+                         + [((2, 130, 70), 1, 'uniform'), ((1, 300, 257), 20, 'uniform')],
+                         ids=lambda v: str(v).replace(' ', ''))
+def test_percentile_routes_equal_plain(cuda_device, shape, r, values):
+    """Every route that takes a window, against the plain version, in both
+    window shapes: bit for bit, but on the signed-zero map, which is held
+    with torch.equal (-0.0 == +0.0: where they tie a route may return
+    either zero); and each launch counted on its route."""
+    from kraken_tpu_torch.ops.binarize import (SMEM_OPTIN, _launch, plan, window_percentile,
+                                               window_percentile_reference)
+    x = torch.from_numpy(SMOKE.edge_map(shape, r, values))
+    for size in ((r, 2), (2, r)):
+        ref = window_percentile_reference(x, 80, size)
+        routes = (['sliding'] if plan(*shape, size)[0] == 'sliding' else []) \
+            + (['staged'] if (7 + size[0]) * (31 + size[1]) * 4 <= SMEM_OPTIN else []) + ['direct']
+        for route in routes:
+            before = dict(window_percentile.route_launches)
+            out = _launch(x.to(cuda_device), 80, size, route).cpu()
+            assert window_percentile.route_launches[route] == before[route] + 1
+            if values == 'zeros':
+                assert torch.equal(out, ref), (size, route)
+            else:
+                assert torch.equal(out.view(torch.int32), ref.view(torch.int32)), (size, route)
+
+
+@pytest.mark.cuda
+def test_percentile_sliding_route_refuses_what_it_cannot_take(cuda_device):
+    from kraken_tpu_torch.ops.binarize import _launch
+    x = torch.rand(1, 9, 5, device=cuda_device)
+    for size in ((3, 3), (878, 2)):
+        with pytest.raises(RuntimeError):
+            _launch(x, 80, size, 'sliding')
 
 
 @pytest.mark.cuda
@@ -764,15 +892,17 @@ def test_percentile_wrapper_raises(cuda_device, bad):
 
 @pytest.mark.cuda
 def test_nlbin_device_on_the_card_equals_the_cpu(cuda_device):
-    """nlbin of input.jpg on the card (two percentile launches) against the
-    same call on the CPU: equal but where the flattened page lies within
-    1e-5 of the threshold."""
+    """nlbin of input.jpg on the card (two percentile launches, both on the
+    sliding route) against the same call on the CPU: equal but where the
+    flattened page lies within 1e-5 of the threshold."""
     from PIL import Image
     from kraken_tpu_torch.ops.binarize import _nlbin_flat, nlbin_device, window_percentile
     arr = np.asarray(Image.open(RESOURCES / 'input.jpg').convert('L'))
     before = window_percentile.launches
+    routes = dict(window_percentile.route_launches)
     card = nlbin_device(arr)
     assert card.device.type == 'cuda' and window_percentile.launches == before + 2
+    assert window_percentile.route_launches == {**routes, 'sliding': routes['sliding'] + 2}
     flat = _nlbin_flat(torch.from_numpy(arr.astype(np.float32))[None] / 255.0)[0]
     cpu = flat > 0.5
     near = (flat - 0.5).abs() <= 1e-5
