@@ -12,6 +12,15 @@
 // the other way, so one launch (gridDim.y = D) computes both directions of
 // a bidirectional layer into the concatenated (B, T, D, H) layout.
 //
+// Peephole variant (a template flag of both designs; replaces the lax.scan
+// kraken_tpu/nn/layers.py:_peephole_scan of the legacy ocropy LSTM): with
+// peephole weights p = (w_ip, w_fp, w_op) of direction d,
+//   i = sigmoid(i + w_ip * c),  f = sigmoid(f + w_fp * c),  g = tanh(g)
+//   c' = f * c + i * g;  o = sigmoid(o + w_op * c');  h' = o * tanh(c')
+// o reads the new cell, i and f the old one. The thread that owns a unit
+// keeps its three peephole weights in registers for the whole launch. The
+// mask acts as above; the ocropy layer passes an all-true one.
+//
 // What bounds it on the H100: the T dependent steps, not bytes or flops.
 // The work, 2*B*T*4H*H flops on the fp32 CUDA cores (67 TFLOP/s), and the
 // bytes the function must move (gates once, out once, w_hh once) are both
@@ -67,6 +76,7 @@
 //   w_hh   (D, 4H, H)     fp32 | bf16 | fp16, the torch weight_hh (cluster)
 //   w_hh_t (D, H, 4H)     fp32, the transposed torch weight_hh (stream)
 //   mask   (B, T)         bool (one byte)
+//   peep   (D, 3, H)      fp32 (w_ip, w_fp, w_op), or null for the plain cell
 //   out    (B, T, D, H)   the type of gates
 
 #include <cooperative_groups.h>
@@ -179,10 +189,10 @@ __device__ __forceinline__ void wait_phase(uint32_t bar, uint32_t parity) {
   }
 }
 
-template <typename T, int ITERS>
+template <typename T, int ITERS, bool PEEP>
 __global__ void __launch_bounds__(CLUSTER_THREADS) lstm_cluster_kernel(
     const T* __restrict__ gates, const void* __restrict__ w_hh, int w_dtype,
-    const uint8_t* __restrict__ mask, T* __restrict__ out,
+    const uint8_t* __restrict__ mask, const float* __restrict__ peep, T* __restrict__ out,
     int B, int T_len, int D, int H, int R, int reverse0) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
@@ -230,6 +240,20 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) lstm_cluster_kernel(
   // read 8 neighbouring gate columns of one row, and share its h loads
   const int n_items = n_units * RG;
   const int lane = threadIdx.x & 31;
+  // the peephole weights of each slot's unit, read once
+  float pw[ITERS][3];
+#pragma unroll
+  for (int it = 0; it < ITERS; ++it) {
+#pragma unroll
+    for (int q = 0; q < 3; ++q) pw[it][q] = 0.f;
+    if constexpr (PEEP) {
+      const int item = (it * blockDim.x + threadIdx.x) >> 2;
+      if (item < n_items) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) pw[it][q] = peep[((size_t)d * 3 + q) * H + u0 + item % n_units];
+      }
+    }
+  }
   for (int s = 0; s < T_len; ++s) {
     const int t = reverse ? T_len - 1 - s : s;
     const int cur = s & 1;
@@ -319,8 +343,16 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) lstm_cluster_kernel(
       if (live) {
         float* c = c_s + 4 * item + ks;
         const float h_old = reinterpret_cast<const float*>(hc + (size_t)rg * HP + u)[ks];
-        const float c_new = sigmoid(pre[1]) * *c + sigmoid(pre[0]) * tanhf(pre[2]);
-        const float h_new = sigmoid(pre[3]) * tanhf(c_new);
+        const float c_old = *c;
+        float c_new, h_new;
+        if constexpr (PEEP) {
+          c_new = sigmoid(pre[1] + pw[it][1] * c_old) * c_old +
+                  sigmoid(pre[0] + pw[it][0] * c_old) * tanhf(pre[2]);
+          h_new = sigmoid(pre[3] + pw[it][2] * c_new) * tanhf(c_new);
+        } else {
+          c_new = sigmoid(pre[1]) * c_old + sigmoid(pre[0]) * tanhf(pre[2]);
+          h_new = sigmoid(pre[3]) * tanhf(c_new);
+        }
         if (m[it]) *c = c_new;
         h_out = m[it] ? h_new : h_old;
         out[(((size_t)b * T_len + t) * D + d) * H + u] = from_f32<T>(m[it] ? h_new : 0.f);
@@ -338,11 +370,12 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) lstm_cluster_kernel(
   }
 }
 
-template <typename T, int ITERS>
+template <typename T, int ITERS, bool PEEP>
 cudaError_t launch_cluster_iters(const ClusterShape& s, const void* gates, const void* w_hh, int w_dtype,
-                                 const uint8_t* mask, void* out, int B, int T_len, int D, int H,
-                                 int C, int R, int reverse0, cudaStream_t stream, int* max_clusters) {
-  auto kernel = lstm_cluster_kernel<T, ITERS>;
+                                 const uint8_t* mask, const float* peep, void* out, int B, int T_len,
+                                 int D, int H, int C, int R, int reverse0, cudaStream_t stream,
+                                 int* max_clusters) {
+  auto kernel = lstm_cluster_kernel<T, ITERS, PEEP>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
   if (err != cudaSuccess) return err;
   if (C > 8) {
@@ -365,22 +398,33 @@ cudaError_t launch_cluster_iters(const ClusterShape& s, const void* gates, const
   if (err != cudaSuccess) return err;
   if (*max_clusters == 0) return cudaErrorLaunchOutOfResources;
   if (gates == nullptr) return cudaSuccess;  // a query only (lstm_cluster_occupancy)
-  return cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(gates), w_hh, w_dtype, mask,
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(gates), w_hh, w_dtype, mask, peep,
                             static_cast<T*>(out), B, T_len, D, H, R, reverse0);
+}
+
+template <typename T, bool PEEP>
+cudaError_t launch_cluster_peep(const ClusterShape& s, const void* gates, const void* w_hh, int w_dtype,
+                                const uint8_t* mask, const float* peep, void* out, int B, int T_len,
+                                int D, int H, int C, int R, int reverse0, cudaStream_t stream,
+                                int* max_clusters) {
+  switch (s.iters) {
+    case 1: return launch_cluster_iters<T, 1, PEEP>(s, gates, w_hh, w_dtype, mask, peep, out, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
+    case 2: return launch_cluster_iters<T, 2, PEEP>(s, gates, w_hh, w_dtype, mask, peep, out, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
+    case 3: return launch_cluster_iters<T, 3, PEEP>(s, gates, w_hh, w_dtype, mask, peep, out, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
+    case 4: return launch_cluster_iters<T, 4, PEEP>(s, gates, w_hh, w_dtype, mask, peep, out, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
+    default: return cudaErrorInvalidValue;  // units * R above MAX_ITERS * CLUSTER_THREADS
+  }
 }
 
 template <typename T>
 cudaError_t launch_cluster(const void* gates, const void* w_hh, int w_dtype, const uint8_t* mask,
-                           void* out, int B, int T_len, int D, int H, int C, int R, int reverse0,
-                           cudaStream_t stream, int* max_clusters) {
+                           const float* peep, void* out, int B, int T_len, int D, int H, int C, int R,
+                           int reverse0, cudaStream_t stream, int* max_clusters) {
   const ClusterShape s = cluster_shape(H, C, R);
-  switch (s.iters) {
-    case 1: return launch_cluster_iters<T, 1>(s, gates, w_hh, w_dtype, mask, out, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
-    case 2: return launch_cluster_iters<T, 2>(s, gates, w_hh, w_dtype, mask, out, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
-    case 3: return launch_cluster_iters<T, 3>(s, gates, w_hh, w_dtype, mask, out, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
-    case 4: return launch_cluster_iters<T, 4>(s, gates, w_hh, w_dtype, mask, out, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
-    default: return cudaErrorInvalidValue;  // units * R above MAX_ITERS * CLUSTER_THREADS
+  if (peep != nullptr) {
+    return launch_cluster_peep<T, true>(s, gates, w_hh, w_dtype, mask, peep, out, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
   }
+  return launch_cluster_peep<T, false>(s, gates, w_hh, w_dtype, mask, peep, out, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
 }
 
 // ------------------------------------------------------------------- stream
@@ -390,10 +434,11 @@ static_assert(ROWS == 4, "h is exchanged as one float4 per hidden unit");
 
 // one thread per hidden unit, H <= 1024: the bound caps registers so that
 // every admitted H launches
-template <typename T>
+template <typename T, bool PEEP>
 __global__ void __launch_bounds__(1024) lstm_stream_kernel(const T* __restrict__ gates,
                                        const float* __restrict__ w_hh_t,
                                        const uint8_t* __restrict__ mask,
+                                       const float* __restrict__ peep,
                                        T* __restrict__ out,
                                        int B, int T_len, int D, int H, int reverse0) {
   // h of the tile, [2 buffers][H][ROWS]: one float4 read gives all rows of unit j
@@ -410,6 +455,14 @@ __global__ void __launch_bounds__(1024) lstm_stream_kernel(const T* __restrict__
   float c[ROWS], h[ROWS];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) { c[r] = 0.f; h[r] = 0.f; }
+  // this unit's peephole weights (w_ip, w_fp, w_op), read once
+  float pw[3] = {0.f, 0.f, 0.f};
+  if constexpr (PEEP) {
+    if (active) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) pw[q] = peep[((size_t)d * 3 + q) * H + k];
+    }
+  }
   __syncthreads();
 
   int cur = 0;
@@ -446,12 +499,20 @@ __global__ void __launch_bounds__(1024) lstm_stream_kernel(const T* __restrict__
       for (int r = 0; r < ROWS; ++r) {
         const int b = row0 + r;
         if (b >= B) continue;
-        const float ig = sigmoid(acc[0][r]);
-        const float fg = sigmoid(acc[1][r]);
-        const float gg = tanhf(acc[2][r]);
-        const float og = sigmoid(acc[3][r]);
-        const float c_new = fg * c[r] + ig * gg;
-        const float h_new = og * tanhf(c_new);
+        float c_new, h_new;
+        if constexpr (PEEP) {
+          const float ig = sigmoid(acc[0][r] + pw[0] * c[r]);
+          const float fg = sigmoid(acc[1][r] + pw[1] * c[r]);
+          c_new = fg * c[r] + ig * tanhf(acc[2][r]);
+          h_new = sigmoid(acc[3][r] + pw[2] * c_new) * tanhf(c_new);
+        } else {
+          const float ig = sigmoid(acc[0][r]);
+          const float fg = sigmoid(acc[1][r]);
+          const float gg = tanhf(acc[2][r]);
+          const float og = sigmoid(acc[3][r]);
+          c_new = fg * c[r] + ig * gg;
+          h_new = og * tanhf(c_new);
+        }
         const bool m = mask[(size_t)b * T_len + t] != 0;
         if (m) {
           c[r] = c_new;
@@ -467,13 +528,18 @@ __global__ void __launch_bounds__(1024) lstm_stream_kernel(const T* __restrict__
 }
 
 template <typename T>
-cudaError_t launch_stream(const void* gates, const float* w_hh_t, const uint8_t* mask, void* out,
-                          int B, int T_len, int D, int H, int reverse0, cudaStream_t stream) {
+cudaError_t launch_stream(const void* gates, const float* w_hh_t, const uint8_t* mask, const float* peep,
+                          void* out, int B, int T_len, int D, int H, int reverse0, cudaStream_t stream) {
   const dim3 grid((B + ROWS - 1) / ROWS, D);
   const int threads = (H + 31) / 32 * 32;
   const size_t smem = 2 * (size_t)H * sizeof(float4);
-  lstm_stream_kernel<T><<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(gates), w_hh_t, mask, static_cast<T*>(out), B, T_len, D, H, reverse0);
+  if (peep != nullptr) {
+    lstm_stream_kernel<T, true><<<grid, threads, smem, stream>>>(
+        static_cast<const T*>(gates), w_hh_t, mask, peep, static_cast<T*>(out), B, T_len, D, H, reverse0);
+  } else {
+    lstm_stream_kernel<T, false><<<grid, threads, smem, stream>>>(
+        static_cast<const T*>(gates), w_hh_t, mask, peep, static_cast<T*>(out), B, T_len, D, H, reverse0);
+  }
   return cudaGetLastError();
 }
 
@@ -489,21 +555,24 @@ bool valid_shape(int B, int T_len, int D, int H) {
 // The cluster design: w_hh is the torch weight (D, 4H, H) in its own type;
 // C is 1..16 CTAs per cluster, R a multiple of 4 rows per tile. A cluster
 // shape the card cannot hold (cudaOccupancyMaxActiveClusters = 0) is an error.
-extern "C" int lstm_recurrence_cluster(const void* gates, const void* w_hh, const void* mask, void* out,
-                                       int B, int T_len, int D, int H, int C, int R, int reverse0,
-                                       int dtype, int w_dtype, int device, void* stream) {
+// peep is the (D, 3, H) fp32 peephole weights, or null (both designs).
+extern "C" int lstm_recurrence_cluster(const void* gates, const void* w_hh, const void* mask,
+                                       const void* peep, void* out, int B, int T_len, int D, int H,
+                                       int C, int R, int reverse0, int dtype, int w_dtype, int device,
+                                       void* stream) {
   if (!valid_shape(B, T_len, D, H) || C < 1 || C > 16 || R < 4 || R % 4 || w_dtype < 0 || w_dtype > 2) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const uint8_t* m = static_cast<const uint8_t*>(mask);
+  const float* p = static_cast<const float*>(peep);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int clusters = 0;
   switch (dtype) {
-    case 0: err = launch_cluster<float>(gates, w_hh, w_dtype, m, out, B, T_len, D, H, C, R, reverse0, s, &clusters); break;
-    case 1: err = launch_cluster<__nv_bfloat16>(gates, w_hh, w_dtype, m, out, B, T_len, D, H, C, R, reverse0, s, &clusters); break;
-    case 2: err = launch_cluster<__half>(gates, w_hh, w_dtype, m, out, B, T_len, D, H, C, R, reverse0, s, &clusters); break;
+    case 0: err = launch_cluster<float>(gates, w_hh, w_dtype, m, p, out, B, T_len, D, H, C, R, reverse0, s, &clusters); break;
+    case 1: err = launch_cluster<__nv_bfloat16>(gates, w_hh, w_dtype, m, p, out, B, T_len, D, H, C, R, reverse0, s, &clusters); break;
+    case 2: err = launch_cluster<__half>(gates, w_hh, w_dtype, m, p, out, B, T_len, D, H, C, R, reverse0, s, &clusters); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
@@ -521,24 +590,25 @@ extern "C" int lstm_cluster_occupancy(int H, int C, int R, int device, int* smem
   *smem_bytes = (int)s.smem;
   *threads = s.threads;
   // a query (no gates) of the kernel that would launch, one tile of one direction
-  err = launch_cluster<float>(nullptr, nullptr, 0, nullptr, nullptr, R, 1, 1, H, C, R, 0, 0, max_clusters);
+  err = launch_cluster<float>(nullptr, nullptr, 0, nullptr, nullptr, nullptr, R, 1, 1, H, C, R, 0, 0, max_clusters);
   return (int)(err == cudaErrorLaunchOutOfResources ? cudaSuccess : err);
 }
 
 // The stream design: w_hh_t is the transposed fp32 weight (D, H, 4H), H <= 1024.
-extern "C" int lstm_recurrence_stream(const void* gates, const void* w_hh_t, const void* mask, void* out,
-                                      int B, int T_len, int D, int H, int reverse0, int dtype,
-                                      int device, void* stream) {
+extern "C" int lstm_recurrence_stream(const void* gates, const void* w_hh_t, const void* mask,
+                                      const void* peep, void* out, int B, int T_len, int D, int H,
+                                      int reverse0, int dtype, int device, void* stream) {
   if (!valid_shape(B, T_len, D, H) || H > 1024) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const float* w = static_cast<const float*>(w_hh_t);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
+  const float* p = static_cast<const float*>(peep);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)launch_stream<float>(gates, w, m, out, B, T_len, D, H, reverse0, s);
-    case 1: return (int)launch_stream<__nv_bfloat16>(gates, w, m, out, B, T_len, D, H, reverse0, s);
-    case 2: return (int)launch_stream<__half>(gates, w, m, out, B, T_len, D, H, reverse0, s);
+    case 0: return (int)launch_stream<float>(gates, w, m, p, out, B, T_len, D, H, reverse0, s);
+    case 1: return (int)launch_stream<__nv_bfloat16>(gates, w, m, p, out, B, T_len, D, H, reverse0, s);
+    case 2: return (int)launch_stream<__half>(gates, w, m, p, out, B, T_len, D, H, reverse0, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -17,11 +17,8 @@ torch state-dict keys (``co.weight``, ``lin.bias``,
 ``layer.weight_ih_l0``, ...), so kraken model files and the JAX package's
 ``state_dict()`` load without renaming. Fresh parameters follow the
 reference's init (uniform(-0.1, 0.1) convolutions, Xavier linear,
-orthogonal LSTM with a forget-gate bias of 1) drawn from an explicit
-``torch.Generator``.
-
-Not ported in this slice (see ROADMAP.md): the legacy ocropy peephole LSTM
-(``Lxxo`` specs) and the transformer encoder block (``Te``).
+orthogonal LSTM with a forget-gate bias of 1, zero peepholes, unit
+LayerNorms) drawn from an explicit ``torch.Generator``.
 """
 import math
 from typing import Optional
@@ -35,7 +32,7 @@ from kraken_tpu_torch.ops.lstm import lstm_recurrence
 
 __all__ = ['ActConv2D', 'Addition', 'Dropout', 'GroupNorm', 'Identity',
            'LinSoftmax', 'MaxPool', 'Parallel', 'Reshape', 'Series',
-           'TransposedSummarizingRNN']
+           'TransformerEncoder', 'TransposedSummarizingRNN']
 
 Shape = tuple[int, int, int, int]
 
@@ -319,6 +316,14 @@ class TransposedSummarizingRNN(Layer):
     one ``torch.matmul``; the recurrence runs in
     :func:`kraken_tpu_torch.ops.lstm.lstm_recurrence`, both directions of a
     bidirectional layer in one call.
+
+    ``legacy='ocropy'`` is the ocropy peephole LSTM (``Lbxo`` specs): no
+    biases (the input carries a column of ones in front), peephole weights
+    ``weight_{i,f,o}p_l0[_reverse]`` (H,), always both directions, and no
+    mask: like the JAX package's ``_peephole_scan`` it runs over the whole
+    padded width, its reverse direction starting at the padding's end;
+    summarization still takes each row's last valid step. Only the
+    bidirectional form exists: ``Lfxo``/``Lrxo`` raise a ValueError.
     """
 
     def __init__(self, input_size: int, hidden_size: int, direction: str = 'b',
@@ -326,9 +331,9 @@ class TransposedSummarizingRNN(Layer):
                  legacy: Optional[str] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if legacy == 'ocropy':
-            raise NotImplementedError('the legacy ocropy peephole LSTM (Lxxo specs) is not '
-                                      'ported yet: ROADMAP.md, queue 1, item 2a')
+        if legacy == 'ocropy' and direction != 'b':
+            raise ValueError(f'ocropy layers are bidirectional: L{direction}x/yo specs have no '
+                             'meaning, use Lbxo or Lbyo')
         self.input_size = input_size
         self.hidden_size = hidden_size
         self.direction = direction
@@ -343,7 +348,10 @@ class TransposedSummarizingRNN(Layer):
         for sfx in self._suffixes:
             params[f'weight_ih_l0{sfx}'] = _orthogonal((4 * H, self._in), generator)
             params[f'weight_hh_l0{sfx}'] = _orthogonal((4 * H, H), generator)
-            if not legacy:
+            if legacy == 'ocropy':
+                for gate in 'ifo':
+                    params[f'weight_{gate}p_l0{sfx}'] = torch.zeros(H)
+            elif not legacy:
                 bias = torch.zeros(4 * H)
                 bias[H:2 * H] = 1.0
                 params[f'bias_ih_l0{sfx}'] = bias
@@ -380,12 +388,18 @@ class TransposedSummarizingRNN(Layer):
         D = len(self._suffixes)
         gates = gates.reshape(B, T, D, 4 * H)
         w_hh = torch.stack([getattr(p, f'weight_hh_l0{s}') for s in self._suffixes])
+        peephole = None
+        if self.legacy == 'ocropy':
+            peephole = torch.stack([torch.stack([getattr(p, f'weight_{gate}p_l0{s}')
+                                                 for gate in 'ifo']) for s in self._suffixes])
+            # the peephole scan ignores the lengths
+            lens = None
         if lens is None:
             mask = torch.ones((B, T), dtype=torch.bool, device=x.device)
         else:
             mask = torch.arange(T, device=x.device)[None, :] < lens.to(x.device)[:, None]
         # direction 0 runs forward, direction 1 (if any) backward
-        ys = self.recurrence(gates, w_hh, mask, False)
+        ys = self.recurrence(gates, w_hh, mask, False, peephole=peephole)
         return ys.reshape(B, T, D * H)
 
     def forward(self, x, seq_len=None, output_shape=None):
@@ -422,6 +436,122 @@ class TransposedSummarizingRNN(Layer):
         else:
             hw = (input[2], input[3])
         return (input[0], self.output_size) + hw
+
+
+class TransformerEncoder(Layer):
+    """
+    Pre-LN transformer encoder block over the width axis (the VGSL ``Te``
+    block of the JAX package, ``nn/layers.py:TransformerEncoder``): LN →
+    multi-head self-attention with rotary position embeddings → residual,
+    LN → GELU FFN → residual. Positions beyond a row's ``seq_len`` are
+    masked out of the softmax (an additive -1e9 on the keys, the lengths
+    clipped to [1, W]) and zeroed on output. Requires H == 1.
+
+    It follows the JAX block op for op, in torch ops: LayerNorm in float32
+    with the population variance and eps 1e-5; RoPE on q and k only,
+    rotating interleaved pairs (``x[..., 0::2]``, ``x[..., 1::2]``) by
+    ``pos · 10000^(-2k/d)`` in float32; scores ``q @ kᵀ`` in float32 over
+    ``sqrt(hd)``, then softmax; the tanh approximation of GELU
+    (``jax.nn.gelu``'s default). Dropout acts only in training.
+    """
+
+    def __init__(self, input_size: int, heads: int, dim: int, ffn_dim: int,
+                 dropout: float = 0.1, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if input_size != dim:
+            raise ValueError(f'Te input channels ({input_size}) must equal the block dim '
+                             f'({dim}); project with e.g. Cl1,1,{{dim}} first')
+        if dim % heads:
+            raise ValueError(f'Te dim {dim} not divisible by heads {heads}')
+        if (dim // heads) % 2:
+            raise ValueError('Te head dim must be even for rotary embeddings')
+        self.input_size = input_size
+        self.heads = heads
+        self.dim = dim
+        self.ffn_dim = ffn_dim
+        self.dropout = dropout
+        D, F_ = dim, ffn_dim
+        self.norm1 = _Params(weight=torch.ones(D), bias=torch.zeros(D))
+        self.attn = nn.Module()
+        self.attn.qkv = _Params(weight=_xavier_uniform((3 * D, D), generator),
+                                bias=torch.zeros(3 * D))
+        self.attn.out = _Params(weight=_xavier_uniform((D, D), generator), bias=torch.zeros(D))
+        self.norm2 = _Params(weight=torch.ones(D), bias=torch.zeros(D))
+        self.ffn = nn.Module()
+        self.ffn.lin1 = _Params(weight=_xavier_uniform((F_, D), generator), bias=torch.zeros(F_))
+        self.ffn.lin2 = _Params(weight=_xavier_uniform((D, F_), generator), bias=torch.zeros(D))
+
+    @property
+    def output_size(self) -> int:
+        return self.dim
+
+    @staticmethod
+    def _layernorm(x: torch.Tensor, p: _Params, eps: float = 1e-5) -> torch.Tensor:
+        x32 = x.to(torch.float32)
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = x32.var(dim=-1, keepdim=True, unbiased=False)
+        w, b = p.weight.to(x.dtype), p.bias.to(x.dtype)
+        return ((x32 - mean) * torch.rsqrt(var + eps) * w + b).to(x.dtype)
+
+    @staticmethod
+    def _rope(x: torch.Tensor) -> torch.Tensor:
+        """Rotary position embedding over (B, h, W, d), interleaved pairs."""
+        d, W = x.shape[-1], x.shape[-2]
+        pos = torch.arange(W, dtype=torch.float32, device=x.device)[:, None]
+        inv = 10000.0 ** (-torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d)
+        ang = pos * inv[None, :]
+        cos, sin = torch.cos(ang), torch.sin(ang)
+        x1, x2 = x[..., 0::2], x[..., 1::2]
+        y1 = x1 * cos - x2 * sin
+        y2 = x1 * sin + x2 * cos
+        return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
+
+    @staticmethod
+    def _linear(x: torch.Tensor, p: _Params) -> torch.Tensor:
+        return x @ p.weight.to(x.dtype).t() + p.bias.to(x.dtype)
+
+    def _block(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """(B, W, D) with an additive float32 mask (B, 1, 1, W) or None."""
+        B, W, D = x.shape
+        h, hd = self.heads, D // self.heads
+        y = self._layernorm(x, self.norm1)
+        q, k, v = self._linear(y, self.attn.qkv).chunk(3, dim=-1)
+
+        def heads_of(t):
+            return t.reshape(B, W, h, hd).transpose(1, 2)  # (B, h, W, hd)
+        q, k, v = heads_of(q), heads_of(k), heads_of(v)
+        q, k = self._rope(q), self._rope(k)
+        scores = (q @ k.transpose(-1, -2)).to(torch.float32) / math.sqrt(hd)
+        if mask is not None:
+            scores = scores + mask
+        attn = torch.softmax(scores, dim=-1).to(x.dtype)
+        if self.training and self.dropout > 0:
+            attn = F.dropout(attn, self.dropout, True)
+        ctx = (attn @ v).transpose(1, 2).reshape(B, W, D)
+        x = x + self._linear(ctx, self.attn.out)
+        y = self._layernorm(x, self.norm2)
+        y = F.gelu(self._linear(y, self.ffn.lin1), approximate='tanh')
+        if self.training and self.dropout > 0:
+            y = F.dropout(y, self.dropout, True)
+        return x + self._linear(y, self.ffn.lin2)
+
+    def forward(self, x, seq_len=None, output_shape=None):
+        N, C, H, W = x.shape
+        if H != 1:
+            raise ValueError('Te blocks require height 1 (apply S1(1x0)1,3 first)')
+        y = x[:, :, 0, :].transpose(1, 2)  # (N, W, C)
+        mask = None
+        if seq_len is not None:
+            lens = torch.clamp(seq_len.to(x.device), 1, W)
+            valid = torch.arange(W, device=x.device)[None, :] < lens[:, None]
+            mask = torch.where(valid, 0.0, -1e9).to(torch.float32)[:, None, None, :]
+        y = self._block(y, mask)
+        if seq_len is not None:
+            y = y * valid[:, :, None].to(y.dtype)
+        return y.transpose(1, 2)[:, :, None, :], seq_len
+
+    def get_shape(self, input: Shape) -> Shape:
+        return (input[0], self.dim, 1, input[3])
 
 
 class Series(Layer):

@@ -32,9 +32,19 @@ whatever the type of ``gates_x``; the output has the type of ``gates_x``.
 Both directions of a bidirectional layer go through one call (and one
 kernel launch): ``gates_x`` is (B, T, D, 4H) with D = 2, ``w_hh`` is
 (D, 4H, H), and direction 1 runs opposite to direction 0.
+
+With ``peephole`` (D, 3, H), the weights (w_ip, w_fp, w_op) of each
+direction, the cell is the legacy ocropy peephole LSTM, the counterpart of
+the JAX package's ``nn/layers.py:_peephole_scan``:
+``i = σ(i + w_ip·c)``, ``f = σ(f + w_fp·c)``, ``c' = f·c + i·tanh(g)``,
+``o = σ(o + w_op·c')``, ``h' = o·tanh(c')``. Both designs take it as a
+template flag of the same source. The JAX scan carries ``h``/``c`` in the
+input's type; here the carry stays float32, so the two are the same
+function in fp32 and the port is the more precise one in bf16.
 """
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -43,8 +53,8 @@ from kraken_tpu_torch.ops.build import DTYPE_CODES
 __all__ = ['lstm_recurrence', 'lstm_recurrence_reference']
 
 
-def _shapes(gates_x: torch.Tensor, w_hh: torch.Tensor,
-            mask: torch.Tensor) -> tuple[int, int, int, int]:
+def _shapes(gates_x: torch.Tensor, w_hh: torch.Tensor, mask: torch.Tensor,
+            peephole: Optional[torch.Tensor] = None) -> tuple[int, int, int, int]:
     if gates_x.dim() != 4:
         raise ValueError(f'gates_x must be (B, T, D, 4H), got {tuple(gates_x.shape)}')
     B, T, D, G = gates_x.shape
@@ -56,11 +66,14 @@ def _shapes(gates_x: torch.Tensor, w_hh: torch.Tensor,
         raise ValueError(f'w_hh must be (D, 4H, H) = {(D, G, H)}, got {tuple(w_hh.shape)}')
     if tuple(mask.shape) != (B, T):
         raise ValueError(f'mask must be (B, T) = {(B, T)}, got {tuple(mask.shape)}')
+    if peephole is not None and tuple(peephole.shape) != (D, 3, H):
+        raise ValueError(f'peephole must be (D, 3, H) = {(D, 3, H)}, got {tuple(peephole.shape)}')
     return B, T, D, H
 
 
 def lstm_recurrence_reference(gates_x: torch.Tensor, w_hh: torch.Tensor,
-                              mask: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+                              mask: torch.Tensor, reverse: bool = False,
+                              peephole: Optional[torch.Tensor] = None) -> torch.Tensor:
     """
     Plain PyTorch version of :func:`lstm_recurrence`: a Python loop over
     the time axis, float32 carry and recurrent product.
@@ -71,23 +84,32 @@ def lstm_recurrence_reference(gates_x: torch.Tensor, w_hh: torch.Tensor,
         mask: (B, T) validity mask (nonzero = valid).
         reverse: direction 0 walks the time axis back to front; direction
             1 (if any) walks it the other way.
+        peephole: (D, 3, H) peephole weights (w_ip, w_fp, w_op) of the
+            ocropy cell, or None for the plain cell.
 
     Returns:
         (B, T, D, H) hidden states, zero at masked steps.
     """
-    B, T, D, H = _shapes(gates_x, w_hh, mask)
+    B, T, D, H = _shapes(gates_x, w_hh, mask, peephole)
     valid = (mask != 0)[:, :, None]
     out = torch.zeros((B, T, D, H), dtype=gates_x.dtype, device=gates_x.device)
     for d in range(D):
         w_t = w_hh[d].to(torch.float32).t()
+        if peephole is not None:
+            w_ip, w_fp, w_op = peephole[d].to(torch.float32)
         h = torch.zeros((B, H), dtype=torch.float32, device=gates_x.device)
         c = torch.zeros_like(h)
         steps = range(T - 1, -1, -1) if (d == 1) != reverse else range(T)
         for t in steps:
             gates = gates_x[:, t, d].to(torch.float32) + h @ w_t
             i, f, g, o = gates.chunk(4, dim=1)
-            c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h_new = torch.sigmoid(o) * torch.tanh(c_new)
+            if peephole is None:
+                c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+                h_new = torch.sigmoid(o) * torch.tanh(c_new)
+            else:
+                c_new = (torch.sigmoid(f + w_fp * c) * c
+                         + torch.sigmoid(i + w_ip * c) * torch.tanh(g))
+                h_new = torch.sigmoid(o + w_op * c_new) * torch.tanh(c_new)
             m = valid[:, t]
             c = torch.where(m, c_new, c)
             h = torch.where(m, h_new, h)
@@ -175,10 +197,11 @@ def cluster_occupancy(H: int, C: int, R: int, device: int = 0) -> tuple[int, int
 
 
 def _launch(gates_x: torch.Tensor, w_hh: torch.Tensor, mask: torch.Tensor,
-            reverse: bool, design: tuple) -> torch.Tensor:
+            reverse: bool, design: tuple, peephole: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launches ``design`` of ``csrc/lstm.cu`` on checked CUDA tensors and
-    counts the launch; raises if the launch is refused."""
-    B, T, D, H = _shapes(gates_x, w_hh, mask)
+    counts the launch; raises if the launch is refused. The peephole
+    weights go to the kernel as a float32 (D, 3, H) copy."""
+    B, T, D, H = _shapes(gates_x, w_hh, mask, peephole)
     out = torch.empty((B, T, D, H), dtype=gates_x.dtype, device=gates_x.device)
     if B == 0 or T == 0:
         return out
@@ -186,31 +209,37 @@ def _launch(gates_x: torch.Tensor, w_hh: torch.Tensor, mask: torch.Tensor,
     lib = load_library('lstm')
     stream = torch.cuda.current_stream(gates_x.device).cuda_stream
     dev = gates_x.device.index
+    peep = None if peephole is None else peephole.to(torch.float32).contiguous()
+    peep_ptr = None if peep is None else peep.data_ptr()
     if design[0] == 'cluster':
         _, C, R = design
         fn = lib.lstm_recurrence_cluster
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        err = fn(gates_x.data_ptr(), w_hh.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        err = fn(gates_x.data_ptr(), w_hh.data_ptr(), mask.data_ptr(), peep_ptr, out.data_ptr(),
                  B, T, D, H, C, R, int(bool(reverse)), DTYPE_CODES[gates_x.dtype],
                  DTYPE_CODES[w_hh.dtype], dev, stream)
     else:
         # the stream design reads w_hh transposed and in fp32
         w_hh_t = w_hh.to(torch.float32).transpose(1, 2).contiguous()
         fn = lib.lstm_recurrence_stream
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        err = fn(gates_x.data_ptr(), w_hh_t.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                 B, T, D, H, int(bool(reverse)), DTYPE_CODES[gates_x.dtype], dev, stream)
+        err = fn(gates_x.data_ptr(), w_hh_t.data_ptr(), mask.data_ptr(), peep_ptr,
+                 out.data_ptr(), B, T, D, H, int(bool(reverse)), DTYPE_CODES[gates_x.dtype], dev,
+                 stream)
     if err != 0:
         raise RuntimeError(f'lstm_recurrence {design[0]} kernel launch failed: cudaError {err}')
     lstm_recurrence.launches += 1
     lstm_recurrence.design_launches[design[0]] += 1
+    if peep is not None:
+        lstm_recurrence.peephole_launches += 1
     return out
 
 
 def lstm_recurrence(gates_x: torch.Tensor, w_hh: torch.Tensor,
-                    mask: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+                    mask: torch.Tensor, reverse: bool = False,
+                    peephole: Optional[torch.Tensor] = None) -> torch.Tensor:
     """
     The LSTM recurrence (same arguments and result as
     :func:`lstm_recurrence_reference`).
@@ -219,7 +248,9 @@ def lstm_recurrence(gates_x: torch.Tensor, w_hh: torch.Tensor,
     a kernel of ``csrc/lstm.cu`` on the current stream, the design that
     :func:`_design` picks for the shapes, and adds one to
     ``lstm_recurrence.launches`` and to the design's entry of
-    ``lstm_recurrence.design_launches``; it raises on a type, shape, layout
+    ``lstm_recurrence.design_launches`` (with ``peephole``, the peephole
+    variant of that design, also to ``lstm_recurrence.peephole_launches``);
+    it raises on a type, shape, layout
     or device the kernel does not take and when the launch is refused. The
     kernel takes ``gates_x`` in float32, bfloat16 or float16 (contiguous),
     ``mask`` as contiguous bool and ``w_hh`` (contiguous) in float32,
@@ -229,10 +260,10 @@ def lstm_recurrence(gates_x: torch.Tensor, w_hh: torch.Tensor,
     float32 copy (D, H, 4H), made on each call.
     """
     if gates_x.device.type == 'cpu':
-        return lstm_recurrence_reference(gates_x, w_hh, mask, reverse)
+        return lstm_recurrence_reference(gates_x, w_hh, mask, reverse, peephole)
     if gates_x.device.type != 'cuda':
         raise ValueError(f'lstm_recurrence runs on cpu or cuda tensors, not {gates_x.device}')
-    B, T, D, H = _shapes(gates_x, w_hh, mask)
+    B, T, D, H = _shapes(gates_x, w_hh, mask, peephole)
     if gates_x.dtype not in DTYPE_CODES or w_hh.dtype not in DTYPE_CODES:
         raise TypeError(f'gates_x and w_hh must be float32, bfloat16 or float16, '
                         f'not {gates_x.dtype} and {w_hh.dtype}')
@@ -240,12 +271,16 @@ def lstm_recurrence(gates_x: torch.Tensor, w_hh: torch.Tensor,
         raise TypeError(f'mask must be bool, not {mask.dtype}')
     if not (gates_x.is_contiguous() and w_hh.is_contiguous() and mask.is_contiguous()):
         raise ValueError('gates_x, w_hh and mask must be contiguous')
-    if w_hh.device != gates_x.device or mask.device != gates_x.device:
-        raise ValueError('gates_x, w_hh and mask must lie on one device')
+    if w_hh.device != gates_x.device or mask.device != gates_x.device or (
+            peephole is not None and peephole.device != gates_x.device):
+        raise ValueError('gates_x, w_hh, mask and peephole must lie on one device')
+    if peephole is not None and peephole.dtype not in DTYPE_CODES:
+        raise TypeError(f'peephole must be float32, bfloat16 or float16, not {peephole.dtype}')
     if H > MAX_HIDDEN:
         raise ValueError(f'the kernel takes a hidden size of at most {MAX_HIDDEN}, not {H}')
-    return _launch(gates_x, w_hh, mask, reverse, _design(B, T, D, H))
+    return _launch(gates_x, w_hh, mask, reverse, _design(B, T, D, H), peephole)
 
 
 lstm_recurrence.launches = 0
 lstm_recurrence.design_launches = {'cluster': 0, 'stream': 0}
+lstm_recurrence.peephole_launches = 0

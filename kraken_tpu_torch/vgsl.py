@@ -22,12 +22,15 @@ Spec syntax::
     Gn<groups>                  group norm
     A<dim>,<chunk>              chunked addition
     I                           identity
+    Te<h>,<d>,<f>[,<p>]         transformer encoder block (the JAX package's
+                                extension): h heads, width d, FFN f,
+                                dropout p/100 (default 0.1)
     O(2|1|0)(l|s|c)[a]<n>       output layer
     [...]  serial block         (...)  parallel block
 
-Not ported in this slice (ROADMAP.md): ``Te`` transformer blocks, ``W``
-wav2vec2 masking and the ``Lxxo`` ocropy peephole LSTM; their specs raise
-``NotImplementedError``.
+The ocropy peephole LSTM exists only bidirectional (``Lbxo``, ``Lbyo``):
+``Lfxo``/``Lrxo`` raise a ValueError. Not ported yet (ROADMAP.md): ``W``
+wav2vec2 masking, whose specs raise ``NotImplementedError``.
 """
 import json
 import logging
@@ -89,12 +92,19 @@ class _Parser:
         return layer.get_shape(input), _Block(block, m.group('type'), m.group('name'), self.idx), layer
 
     def _transformer(self, input, block, target_output_shape=None):
-        # Te<heads>,<dim>,<ffn>[,<dropout·100>]: the JAX package's transformer
-        # encoder block, not ported yet
-        if not re.match(r'Te(?P<name>{\w+})?\d+,\d+,\d+(?:,\d+)?$', block):
+        # Te<heads>,<dim>,<ffn>[,<dropout·100>]: one pre-LN rotary-attention
+        # encoder block over the width axis (the JAX package's grammar
+        # extension; nn/layers.py TransformerEncoder)
+        m = re.match(r'Te(?P<name>{\w+})?(?P<heads>\d+),(?P<dim>\d+),'
+                     r'(?P<ffn>\d+)(?:,(?P<do>\d+))?$', block)
+        if not m:
             return None
-        raise NotImplementedError('the transformer encoder block (Te specs) is not ported '
-                                  'yet: ROADMAP.md, queue 1, item 2b')
+        layer = layers.TransformerEncoder(
+            input[1], int(m.group('heads')), int(m.group('dim')), int(m.group('ffn')),
+            int(m.group('do')) / 100.0 if m.group('do') else 0.1,
+            generator=self.generator)
+        self.idx += 1
+        return layer.get_shape(input), _Block(block, 'Te', m.group('name'), self.idx), layer
 
     def _dropout(self, input, block, target_output_shape=None):
         m = re.match(r'(?P<type>Do)(?P<name>{\w+})?(?P<p>(\d+(\.\d*)?|\.\d+))?(,(?P<dim>\d+))?', block)
@@ -546,7 +556,10 @@ class VGSLModel:
         (transposed convolutions IOHW), linear weights (out, in), LSTM
         ``weight_ih_l0[_reverse]`` (4H, in) and ``weight_hh_l0[_reverse]``
         (4H, H) in gate order i, f, g, o, and ``bias_ih``/``bias_hh`` kept
-        apart. An unknown key, a missing one or a wrong shape raises.
+        apart, ocropy peepholes ``weight_{i,f,o}p_l0[_reverse]`` (H,), and
+        a ``Te`` block's ``norm1``, ``attn.qkv``, ``attn.out``, ``norm2``,
+        ``ffn.lin1`` and ``ffn.lin2`` weights and biases. An unknown key, a
+        missing one or a wrong shape raises.
         """
         own = self.net.state_dict()
         unknown = sorted(k for k in sd if not k.startswith('nn.') or k[3:] not in own)

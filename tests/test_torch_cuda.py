@@ -190,6 +190,75 @@ def test_stream_design_runs_hidden_sizes_a_cluster_holds(cuda_device):
     assert (cluster - stream).abs().max().item() <= 1e-5
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('B,T,H', [(3, 7, 8), (7, 33, 25), (9, 20, 130), (5, 17, 400),
+                                   (5, 17, 512), (6, 40, 100)])
+def test_peephole_variant_matches_plain_version(cuda_device, B, T, H, dtype, reverse):
+    """The ocropy cell (csrc/lstm.cu's peephole flag) in the design the
+    shapes pick (cluster of 8 or 16, or stream at H = 512), ragged masks and
+    random peephole weights; each launch counted once as peephole and once
+    under its design."""
+    design = _design(B, T, 2, H)
+    g, w, m = _recurrence_inputs(B, T, H, H + B + 1)
+    p = torch.from_numpy(np.random.RandomState(H).randn(2, 3, H).astype(np.float32))
+    g, w, m, p = g.to(cuda_device, dtype), w.to(cuda_device), m.to(cuda_device), p.to(cuda_device)
+    before = dict(lstm_recurrence.design_launches), lstm_recurrence.peephole_launches
+    out = lstm_recurrence(g, w, m, reverse, peephole=p)
+    torch.cuda.synchronize()
+    assert lstm_recurrence.peephole_launches == before[1] + 1
+    assert lstm_recurrence.design_launches[design[0]] == before[0][design[0]] + 1
+    ref = lstm_recurrence_reference(g, w, m, reverse, peephole=p)
+    atol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert out.dtype == dtype and out.shape == (B, T, 2, H)
+    assert (out.float() - ref.float()).abs().max().item() <= atol
+    assert (out.float() - lstm_recurrence_reference(g, w, m, reverse).float()).abs().max() > atol
+
+
+@pytest.mark.cuda
+def test_peephole_wrapper_raises(cuda_device):
+    g = torch.zeros(2, 3, 2, 32, device=cuda_device)
+    w = torch.zeros(2, 32, 8, device=cuda_device)
+    m = torch.ones(2, 3, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError):
+        lstm_recurrence(g, w, m, peephole=torch.zeros(2, 3, 8))
+    with pytest.raises(ValueError):
+        lstm_recurrence(g, w, m, peephole=torch.zeros(2, 2, 8, device=cuda_device))
+    with pytest.raises(TypeError):
+        lstm_recurrence(g, w, m, peephole=torch.zeros(2, 3, 8, dtype=torch.int32,
+                                                      device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_ocropy_forward_launches_peephole_kernel(cuda_device):
+    """An Lbxo network: one peephole launch a layer over the whole padded
+    width, logits within 1e-4 of the plain recurrence."""
+    model = VGSLModel('[1,48,0,1 Cr3,3,8 Mp2,2 S1(1x0)1,3 Lbxo32 Lbxso24 O1c20]',
+                      generator=torch.Generator().manual_seed(2))
+    rnns = [m for m in model.net.modules() if isinstance(m, TransposedSummarizingRNN)]
+    with torch.no_grad():
+        for m in rnns:
+            for k, v in m.layer.named_parameters():
+                if k.startswith(('weight_ip', 'weight_fp', 'weight_op')):
+                    v.normal_(0, 0.5, generator=torch.Generator().manual_seed(len(k)))
+    model.net.to(cuda_device)
+    x = torch.from_numpy(np.random.RandomState(2).rand(5, 1, 48, 96).astype(np.float32))
+    lens = torch.tensor([96, 80, 33, 9, 4], dtype=torch.int32)
+    x, lens = x.to(cuda_device), lens.to(cuda_device)
+    before = lstm_recurrence.peephole_launches
+    with torch.inference_mode():
+        y, olens = model(x, lens)
+    torch.cuda.synchronize()
+    assert lstm_recurrence.peephole_launches == before + 2
+    for m in rnns:
+        m.recurrence = lstm_recurrence_reference
+    with torch.inference_mode():
+        y_ref, olens_ref = model(x, lens)
+    assert torch.equal(olens, olens_ref) and y.shape == (5, 20, 1, 1)
+    assert (y - y_ref).abs().max().item() <= 1e-4
+
+
 # ---------------------------------------------------------------- segmentation
 def _within(out: torch.Tensor, ref: torch.Tensor, dtype) -> bool:
     """fp32: within 1e-5. bf16 outputs: within 2e-2 of values up to 1 and

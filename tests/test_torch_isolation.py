@@ -33,6 +33,14 @@ model = VGSLModel('[1,48,0,1 Cr3,13,8 Mp2,2 Cr3,9,16 Mp2,2 S1(1x0)1,3 Lbx16 Lbx1
 with torch.no_grad():
     y, lens = model(torch.rand(2, 1, 48, 64), torch.tensor([64, 33], dtype=torch.int32))
 assert y.shape == (2, 20, 1, 16)
+for spec in ('[1,48,0,1 S1(1x0)1,3 Lbxo8 O1c20]',
+             '[1,48,0,1 Cr3,3,8,2,2 Mp2,2 S1(1x0)1,3 Cl1,1,16 Te2,16,32 O1c20]'):
+    with torch.no_grad():
+        y, lens = VGSLModel(spec, generator=torch.Generator().manual_seed(0))(
+            torch.rand(2, 1, 48, 64), torch.tensor([64, 33], dtype=torch.int32))
+    assert y.shape[:2] == (2, 20) and bool(torch.isfinite(y).all())
+for fixture in ('ocropy_small.mlmodel', 'te_small.safetensors'):
+    assert load_models(res + '/' + fixture)[0].codec is not None
 vmodel = load_models(res + '/overfit_bl_newpoly.safetensors')[0]
 vmodel.prepare_for_inference(RecognitionInferenceConfig(device='cpu', num_line_workers=0))
 seg = Segmentation(type='baselines', imagename=res + '/bw.png', text_direction='horizontal-lr',
@@ -107,8 +115,8 @@ print('FORBIDDEN', bad)
 
 
 def test_port_runs_without_jax_or_kraken_tpu(resources):
-    """A fresh interpreter runs the port's recognition forward and engine,
-    its segmentation (the task model and the legacy ``blla.segment``), its
+    """A fresh interpreter runs the port's recognition forward and engine
+    (an ocropy and a transformer network among them), its segmentation (the task model and the legacy ``blla.segment``), its
     forced alignment, its neural reading order, its CLI (``segment -bl
     ocr`` to ALTO), its page pipeline, the host and the device nlbin, the
     legacy box segmenter and the PDF extractor on the CPU and never imports
@@ -135,6 +143,9 @@ def _forbidden_imports(source: str) -> list[str]:
 def test_source_scan_finds_no_jax_imports():
     files = sorted((REPO / 'kraken_tpu_torch').rglob('*.py')) + [REPO / 'chip_smoke.py']
     assert len(files) > 20
+    contrib = {p.stem for p in files if p.parent.name == 'contrib'}
+    assert {'extract_lines', 'repolygonize', 'segmentation_overlay', 'heatmap_overlay',
+            'print_word_spreader', 'generate_bidi_tables'} <= contrib
     found = {str(p.relative_to(REPO)): _forbidden_imports(p.read_text()) for p in files}
     assert {k: v for k, v in found.items() if v} == {}
 

@@ -149,7 +149,23 @@ def test_summarize_takes_last_valid_step():
         torch.testing.assert_close(y[i, :, 0, 0], y_full[i, :, 0, n - 1], atol=0, rtol=0)
 
 
-@pytest.mark.parametrize('block', ['Lbxo16', 'Te2,16,32'])
-def test_unported_layers_raise(block):
+def test_unported_layers_raise():
+    """The wav2vec2 masking layer (pretraining) is the one VGSL layer the
+    port does not build yet."""
     with pytest.raises(NotImplementedError, match='ROADMAP'):
+        VGSLModel('[1,1,0,16 S1(1x0)1,3 Cr1,1,16 W{w}16,4,0.5,10 O1c5]')
+
+
+@pytest.mark.parametrize('block', ['Lfxo16', 'Lrxo16'])
+def test_unidirectional_ocropy_layers_raise(block):
+    with pytest.raises(ValueError, match='ocropy layers are bidirectional'):
         VGSLModel(f'[1,1,0,16 S1(1x0)1,3 Cr1,1,16 {block} O1c5]')
+
+
+@pytest.mark.parametrize('block', ['Lbxo16', 'Te2,16,32'])
+def test_formerly_unported_layers_run(block):
+    model = VGSLModel(f'[1,1,0,16 S1(1x0)1,3 Cr1,1,16 {block} O1c5]',
+                      generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        y, lens = model(torch.rand(2, 16, 1, 12), torch.tensor([12, 7], dtype=torch.int32))
+    assert y.shape == (2, 5, 1, 12) and bool(torch.isfinite(y).all())
