@@ -24,9 +24,25 @@ Nor has it ``accelerator`` (``device`` names the device), ``compile``
 ``num_threads`` (the CLI's ``--threads`` sizes OpenCV's pool; no config
 reads it) or ``linetype`` (the XML readers take the line type as an
 argument); those keys warn as unknown.
-"""
 
-__all__ = ['Config', 'RecognitionInferenceConfig', 'SegmentationInferenceConfig']
+The training and data configs (the JAX package's ``TrainingDataConfig``,
+``TrainingConfig`` and their recognition and segmentation subclasses)
+serve evaluation for now: ``ketos test``/``segtest`` and the evaluation
+halves of :mod:`kraken_tpu_torch.train`. The keys only a training loop
+reads (optimizer, schedule, stopping, checkpointing, the spec and resize
+of a new model, the training files and split) have no consumer until
+ROADMAP.md queue 1 item 9b, and ``devices`` none until item 10 (multi-GPU):
+given, they warn with the item's name and are dropped.
+"""
+import logging
+from collections import defaultdict
+
+__all__ = ['Config', 'RecognitionInferenceConfig', 'SegmentationInferenceConfig',
+           'TrainingDataConfig', 'RecognitionTrainingDataConfig',
+           'SegmentationTrainingDataConfig', 'TrainingConfig',
+           'RecognitionTrainingConfig', 'SegmentationTrainingConfig']
+
+logger = logging.getLogger(__name__)
 
 
 class Config:
@@ -47,8 +63,7 @@ class Config:
         self.batch_size = kwargs.pop('batch_size', 1)
         self.raise_on_error = kwargs.pop('raise_on_error', False)
         if kwargs:
-            import logging
-            logging.getLogger(__name__).warning(f'Ignoring unknown configuration parameters: {sorted(kwargs)}')
+            logger.warning(f'Ignoring unknown configuration parameters: {sorted(kwargs)}')
 
     def __repr__(self):
         return f'{type(self).__name__}({vars(self)})'
@@ -111,4 +126,127 @@ class SegmentationInferenceConfig(Config):
         self.bbox_ro_fn = kwargs.pop('bbox_ro_fn', geometry.reading_order)
         self.baseline_ro_fn = kwargs.pop('baseline_ro_fn', geometry.polygonal_reading_order)
         self.ridge_threshold = kwargs.pop('ridge_threshold', 0.17)
+        super().__init__(**kwargs)
+
+
+# keys of the JAX package's training configs that nothing in the port reads
+# yet, by the ROADMAP.md queue 1 item that brings their consumer
+_DEFERRED = {
+    '9b (the training loops)': (
+        'training_data', 'partition', 'codec', 'epochs', 'completed_epochs', 'freq',
+        'checkpoint_path', 'weights_format', 'optimizer', 'lrate', 'momentum',
+        'weight_decay', 'gradient_clip_val', 'accumulate_grad_batches', 'schedule',
+        'warmup', 'step_size', 'gamma', 'rop_factor', 'rop_patience', 'cos_t_max',
+        'cos_min_lr', 'quit', 'save_top_k', 'min_epochs', 'lag', 'min_delta', 'remat',
+        'loggers', 'profile_dir', 'spec', 'append', 'resize', 'freeze_backbone',
+        'topline', 'dice_weight'),
+    '10 (multi-GPU)': ('devices',),
+}
+
+
+def _drop_deferred(kwargs: dict, keys: tuple) -> None:
+    """Pops the deferred keys among `keys` from `kwargs`, warning with the
+    ROADMAP item that brings their consumer."""
+    for item, deferred in _DEFERRED.items():
+        given = sorted(k for k in keys if k in deferred and k in kwargs)
+        for k in given:
+            kwargs.pop(k)
+        if given:
+            logger.warning(f'Ignoring configuration parameters {given}: nothing reads them '
+                           f'until ROADMAP.md queue 1 item {item}')
+
+
+class _Counter:
+    """Stateful counter for auto-assigned class mapping labels."""
+
+    def __init__(self, start=0):
+        self.value = start
+
+    def __call__(self):
+        self.value += 1
+        return self.value
+
+
+class TrainingDataConfig:
+    """
+    Generic training data configuration.
+
+    Args:
+        evaluation_data / test_data: input file lists
+        num_workers: host data-loading threads
+        augment: enable augmentation
+        batch_size: batch size
+    """
+
+    def __init__(self, **kwargs):
+        _drop_deferred(kwargs, ('training_data', 'partition', 'codec'))
+        self.evaluation_data = kwargs.pop('evaluation_data', None)
+        self.test_data = kwargs.pop('test_data', None)
+        self.num_workers = kwargs.pop('num_workers', 1)
+        self.augment = kwargs.pop('augment', False)
+        self.batch_size = kwargs.pop('batch_size', 1)
+        if kwargs:
+            logger.warning(f'Ignoring unknown configuration parameters: {sorted(kwargs)}')
+
+    def __repr__(self):
+        return f'{type(self).__name__}({vars(self)})'
+
+
+class SegmentationTrainingDataConfig(TrainingDataConfig):
+    """
+    Segmentation data configuration: format type, line/region class
+    mappings (auto-assigning by default; labels 0/1 are reserved for the
+    start/end separator channels), line width and page padding.
+    """
+
+    def __init__(self, **kwargs):
+        counter = _Counter(start=1)
+        self.format_type = kwargs.pop('format_type', 'xml')
+        self.line_class_mapping = kwargs.pop('line_class_mapping', defaultdict(counter))
+        self.region_class_mapping = kwargs.pop('region_class_mapping', defaultdict(counter))
+        self.line_width = kwargs.pop('line_width', 4)
+        # (left/right, top/bottom) padding around the page image
+        self.padding = kwargs.pop('padding', (0, 0))
+        _drop_deferred(kwargs, ('topline',))
+        super().__init__(**kwargs)
+
+
+class RecognitionTrainingDataConfig(TrainingDataConfig):
+    """
+    Recognition data configuration: format type (xml/path/binary), line
+    type filter, binary dataset split flag, line padding and the text
+    transforms.
+    """
+
+    def __init__(self, **kwargs):
+        self.binary_dataset_split = kwargs.pop('binary_dataset_split', False)
+        self.format_type = kwargs.pop('format_type', 'xml')
+        self.linetype = kwargs.pop('linetype', None)
+        self.pad = kwargs.pop('pad', 16)
+        self.normalization = kwargs.pop('normalization', None)
+        self.normalize_whitespace = kwargs.pop('normalize_whitespace', True)
+        self.reorder = kwargs.pop('reorder', True)
+        self.legacy_polygons = kwargs.pop('legacy_polygons', False)
+        super().__init__(**kwargs)
+
+
+class TrainingConfig(Config):
+    """Generic training configuration: so far its device, precision and
+    batch size (the training keys wait for queue 1 item 9b)."""
+
+    def __init__(self, **kwargs):
+        _drop_deferred(kwargs, tuple(k for keys in _DEFERRED.values() for k in keys))
+        super().__init__(**kwargs)
+
+
+class RecognitionTrainingConfig(TrainingConfig):
+    """Recognition-specific training configuration."""
+
+
+class SegmentationTrainingConfig(TrainingConfig):
+    """Segmentation-specific training configuration."""
+
+    def __init__(self, **kwargs):
+        # tolerance (px) for baseline-detection validation matching
+        self.bl_tol = kwargs.pop('bl_tol', 25.0)
         super().__init__(**kwargs)

@@ -66,6 +66,11 @@ class ImageInputTransforms:
                  4-tuple = (l, t, r, b))
             valid_norm: allow centerline normalization where applicable
         """
+        self._spec = (batch, height, width, channels, pad)
+        self._configure(valid_norm)
+
+    def _configure(self, valid_norm: bool) -> None:
+        batch, height, width, channels, pad = self._spec
         self._batch = batch
         self._scale = (height, width)
         self._channels = channels
@@ -94,6 +99,15 @@ class ImageInputTransforms:
             raise KrakenInputException(
                 f'Invalid input spec {batch}, {height}, {width}, {channels}, {pad}.')
         self._lnorm = CenterNormalizer(self._scale[0]) if self._center_norm else None
+
+    @property
+    def valid_norm(self) -> bool:
+        """Whether centerline normalization may apply (bbox lines)."""
+        return self._valid_norm
+
+    @valid_norm.setter
+    def valid_norm(self, valid_norm: bool) -> None:
+        self._configure(valid_norm)
 
     @property
     def mode(self) -> str:

@@ -16,7 +16,7 @@ if TYPE_CHECKING:
     from PIL import Image
 
 __all__ = ['pil2array', 'array2pil', 'is_bitonal', 'open_image', 'get_im_str',
-           'is_printable', 'make_printable', 'default_segmentation_model']
+           'is_printable', 'make_printable', 'default_segmentation_model', 'parse_gt_path']
 
 
 def default_segmentation_model() -> Path:
@@ -99,3 +99,42 @@ def make_printable(char: str) -> str:
         except ValueError:
             return f'U+{ord(char):04X}'
     return char
+
+
+def parse_gt_path(path: Union[str, PathLike],
+                  suffix: str = '.gt.txt',
+                  split=None,
+                  skip_empty_lines: bool = True,
+                  base_dir=None,
+                  text_direction: str = 'horizontal-lr'):
+    """
+    Parses an image + `.gt.txt` transcription pair into a BBoxLine covering
+    the whole image (reference: lib/util.py:120).
+    """
+    from PIL import Image
+    from kraken_tpu_torch.containers import BBoxLine
+
+    path = Path(path)
+    if split is None:
+        base = path
+        while base.suffixes:
+            base = base.with_suffix('')
+        gt_path = Path(str(base) + suffix)
+    else:
+        gt_path = Path(split(path) + suffix)
+    try:
+        with Image.open(path) as im:
+            w, h = im.size
+    except Exception as e:
+        raise ValueError(f'Could not open image {path}: {e}') from e
+    if not gt_path.is_file():
+        raise ValueError(f'No transcription file {gt_path} for image {path}')
+    text = gt_path.read_text(encoding='utf-8').strip('\n\r')
+    if not text and skip_empty_lines:
+        raise ValueError(f'Ground truth line has no transcription: {gt_path}')
+    return BBoxLine(id=f'_{path.name}',
+                    bbox=(0, 0, w, h),
+                    text=text,
+                    base_dir=base_dir,
+                    imagename=path,
+                    text_direction=text_direction)

@@ -17,8 +17,6 @@ import logging
 import re
 from typing import TYPE_CHECKING, Any, Iterable, Literal, Optional, Sequence
 
-from lxml import etree
-
 from kraken_tpu_torch import __version__
 from kraken_tpu_torch.lib.util import make_printable
 
@@ -201,6 +199,7 @@ def _mean(vals) -> float:
 
 # --------------------------------------------------------------------- ALTO
 def _render_alto(page, metadata) -> str:
+    from lxml import etree
     E = etree.Element
     nsmap = {None: _ALTO_NS, 'xsi': _XSI_NS}
     root = E(f'{{{_ALTO_NS}}}alto', nsmap=nsmap)
@@ -336,6 +335,7 @@ def _render_alto(page, metadata) -> str:
 
 # ------------------------------------------------------------------ PageXML
 def _render_pagexml(page, metadata) -> str:
+    from lxml import etree
     nsmap = {None: _PAGE_NS, 'xsi': _XSI_NS}
     root = etree.Element(f'{{{_PAGE_NS}}}PcGts', nsmap=nsmap)
     root.set(f'{{{_XSI_NS}}}schemaLocation',
@@ -477,6 +477,7 @@ def _render_hocr(page, metadata) -> str:
 
 # ----------------------------------------------------------------- abbyyXML
 def _render_abbyyxml(page, metadata) -> str:
+    from lxml import etree
     ns = 'http://www.abbyy.com/FineReader_xml/FineReader10-schema-v1.xml'
     root = etree.Element(f'{{{ns}}}document', nsmap={None: ns},
                          version='1.0', producer=f'kraken {metadata["version"]}')

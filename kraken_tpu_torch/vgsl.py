@@ -34,6 +34,7 @@ wav2vec2 masking, whose specs raise ``NotImplementedError``.
 """
 import json
 import logging
+import math
 import re
 from typing import Any, Optional, Sequence, Union
 
@@ -569,6 +570,93 @@ class VGSLModel:
         if missing:
             raise KrakenInvalidModelException(f'Missing keys in JAX state dict: {missing}')
         self._assign({k[3:]: v for k, v in sd.items()})
+
+    # ------------------------------------------------------------- editing
+    def append(self, idx: int, spec: str, generator: Optional[torch.Generator] = None) -> None:
+        """
+        Splits the model at layer `idx` (top-level position) and appends the
+        layers of `spec` (a bracketed block list without input block), with
+        fresh parameters from `generator` (seeded from numpy's global state
+        when omitted), on the device and in the type of the kept layers.
+        """
+        kept = list(zip(self.net.names[:idx], self.net.layers[:idx]))
+        self.named_spec = self.named_spec[:idx + 1]
+        shape = self.input
+        for _, layer in kept:
+            shape = layer.get_shape(shape)
+        if generator is None:
+            generator = torch.Generator().manual_seed(int(np.random.randint(0, 2**31 - 1)))
+        parser = _Parser(generator)
+        parser.idx = idx - 1
+        parser.criterion = None
+        new_spec, new_tree, oshape = parser.parse(shape, spec[1:-1].split(' '))
+        if parser.criterion:
+            self.criterion = parser.criterion
+        new_tree.to(**self._placement())
+        kept.extend(zip(new_tree.names, new_tree.layers))
+        self.net = layers.Series(layers=tuple(m for _, m in kept), names=tuple(n for n, _ in kept))
+        self.net.eval()
+        self.output = oshape
+        self.named_spec.extend(str(x) for x in new_spec)
+        self.spec = '[' + ' '.join(self.named_spec) + ']'
+        self.user_metadata['vgsl'] = self.spec
+
+    def resize_output(self, output_size: int, del_indices: Optional[Sequence[int]] = None,
+                      generator: Optional[torch.Generator] = None) -> None:
+        """
+        Resizes the final output layer (linear or convolutional): drops the
+        output rows in `del_indices`, keeps the others as they are and
+        appends fresh rows up to `output_size` (Xavier-uniform weights over
+        the row's fan-in and the new rows, as the JAX package draws them,
+        from `generator`; zero biases).
+        """
+        last_name, last = self.net.names[-1], self.net.layers[-1]
+        if not isinstance(last, (layers.ActConv2D, layers.LinSoftmax)):
+            raise ValueError('output resizing needs a linear or convolutional final layer')
+        holder = last.lin if isinstance(last, layers.LinSoftmax) else last.co
+        dropped = set(del_indices or [])
+        keep = [i for i in range(holder.weight.shape[0]) if i not in dropped]
+        if len(keep) > output_size:
+            raise ValueError(f'{len(keep)} output rows remain, more than the new size {output_size}')
+        weight, bias = holder.weight.detach()[keep], holder.bias.detach()[keep]
+        extra = output_size - len(keep)
+        if extra:
+            if generator is None:
+                generator = torch.Generator().manual_seed(int(np.random.randint(0, 2**31 - 1)))
+            a = math.sqrt(6.0 / (math.prod(weight.shape[1:]) + extra))
+            fresh = torch.empty((extra, *weight.shape[1:])).uniform_(-a, a, generator=generator)
+            weight = torch.cat([weight, fresh.to(weight)])
+            bias = torch.cat([bias, bias.new_zeros(extra)])
+        if isinstance(last, layers.LinSoftmax):
+            new_layer = layers.LinSoftmax(last.input_size, output_size, last.augmentation,
+                                          generator=torch.Generator())
+            new_holder = new_layer.lin
+        else:
+            new_layer = layers.ActConv2D(last.in_channels, output_size, last.kernel_size,
+                                         last.stride, last.nl, last.dilation, last.transposed,
+                                         generator=torch.Generator())
+            new_holder = new_layer.co
+        new_layer.to(**self._placement())
+        with torch.no_grad():
+            new_holder.weight.copy_(weight)
+            new_holder.bias.copy_(bias)
+        self.net._modules[last_name] = new_layer.eval()
+        self.output = self.output[:1] + (output_size,) + self.output[2:]
+        m = re.match(r'(O)(?P<name>{\w+})?(?P<dim>2|1|0)(?P<type>l|s|c)(?P<aug>a)?(?P<out>\d+)',
+                     self.named_spec[-1])
+        if not m:
+            raise ValueError('Cannot parse output spec')
+        self.named_spec[-1] = 'O{}{}{}{}{}'.format(m.group('name') or '', m.group('dim'),
+                                                  m.group('type'), m.group('aug') or '', output_size)
+        self.spec = '[' + ' '.join(self.named_spec) + ']'
+        self.user_metadata['vgsl'] = self.spec
+
+    def _placement(self) -> dict:
+        """The device and floating type of the parameters (CPU float32 for
+        a model without any)."""
+        p = next(self.net.parameters(), None)
+        return {'device': p.device, 'dtype': p.dtype} if p is not None else \
+            {'device': torch.device('cpu'), 'dtype': torch.float32}
 
     def __repr__(self):
         return f'VGSLModel({self.spec})'

@@ -9,7 +9,13 @@ run through both packages' scripts on the same inputs give
   ``heatmap_overlay`` (the two forwards differ in summation order, which
   can move a pixel's class or its truncated colour);
 - the checked-in ``_bidi_tables.json``, byte for byte, from
-  ``generate_bidi_tables`` with its output pointed at a temporary copy.
+  ``generate_bidi_tables`` with its output pointed at a temporary copy;
+- byte-equal line files from ``extract_lines -f binary`` (the port reads
+  the Arrow file through its ``ArrowIPCRecognitionDataset``);
+- for ``set_seg_options`` and ``add_neural_ro`` (model writers), files
+  that load in both packages with the JAX script's metadata and
+  parameters (bit for bit); for ``test_per_file``, the JAX script's
+  output.
 
 The scripts that run a model default to ``--device cuda`` and stop with a
 usage error without a card; here they run with ``-d cpu``.
@@ -155,9 +161,68 @@ def test_generate_bidi_tables(tmp_path, monkeypatch):
 @pytest.mark.parametrize('script, args', [
     ('heatmap_overlay', ['-i', RESOURCES / 'blla_small.safetensors']),
     ('segmentation_overlay', []),
+    ('test_per_file', ['-m', RESOURCES / 'overfit.mlmodel']),
 ])
 def test_model_scripts_need_a_card_by_default(monkeypatch, script, args):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     cli = importlib.import_module(f'kraken_tpu_torch.contrib.{script}').cli
     result = CliRunner().invoke(cli, [str(a) for a in args] + [str(RESOURCES / 'bw.png')])
     assert result.exit_code == 2 and 'no CUDA device' in result.output
+
+
+def test_the_evaluation_scripts_exist():
+    assert {'set_seg_options', 'add_neural_ro', 'test_per_file'} <= set(PORT)
+
+
+@pytest.mark.parametrize('arrow', ['base.arrow', 'merger.arrow'])
+def test_extract_lines_binary(tmp_path, arrow):
+    for package in ('kraken_tpu', 'kraken_tpu_torch'):
+        _run(package, 'extract_lines', ['-f', 'binary', '-o', tmp_path / package,
+                                        RESOURCES / 'merge_tests' / arrow])
+    ours, theirs = _files(tmp_path / 'kraken_tpu_torch'), _files(tmp_path / 'kraken_tpu')
+    assert len([n for n in ours if n.endswith('.png')]) > 0
+    assert ours == theirs
+
+
+def _same_files(a: Path, b: Path) -> None:
+    """Both packages load both files to the same models: metadata and
+    parameters bit for bit."""
+    from kraken_tpu.models import load_models as jax_load
+    from kraken_tpu_torch.models import load_models
+    for load in (jax_load, load_models):
+        for x, y in zip(load(a), load(b), strict=True):
+            assert type(x) is type(y) and x.user_metadata == y.user_metadata
+            xs, ys = x.state_dict(), y.state_dict()
+            assert sorted(xs) == sorted(ys)
+            assert all(np.array_equal(np.asarray(xs[k]), np.asarray(ys[k])) for k in xs)
+
+
+@pytest.mark.parametrize('args', [['-br', 'text', '-br', 'table', '--topline'],
+                                  ['--baseline', '--pad', '10', '20']])
+def test_set_seg_options(tmp_path, args):
+    out = {}
+    for package in ('kraken_tpu', 'kraken_tpu_torch'):
+        out[package] = _seg_model(tmp_path / f'{package}.safetensors')
+        result = _run(package, 'set_seg_options', args + [out[package]])
+        out[package, 'echo'] = result.output
+    assert out['kraken_tpu_torch', 'echo'] == out['kraken_tpu', 'echo']
+    assert 'Metadata updated' in out['kraken_tpu', 'echo']
+    _same_files(out['kraken_tpu_torch'], out['kraken_tpu'])
+
+
+def test_add_neural_ro(tmp_path):
+    for package in ('kraken_tpu', 'kraken_tpu_torch'):
+        _run(package, 'add_neural_ro', ['-r', RESOURCES / 'ro_small.safetensors',
+                                        '-o', tmp_path / f'{package}.safetensors',
+                                        RESOURCES / 'blla_small.safetensors'])
+    _same_files(tmp_path / 'kraken_tpu_torch.safetensors', tmp_path / 'kraken_tpu.safetensors')
+    from kraken_tpu_torch.models import load_models
+    assert [type(m).__name__ for m in load_models(tmp_path / 'kraken_tpu_torch.safetensors')] \
+        == ['VGSLModel', 'ROMLP']
+
+
+def test_per_file_equals_jax():
+    args = ['-m', RESOURCES / 'overfit_bl.safetensors', '-f', 'xml', PAGE_XML]
+    ours = _run('kraken_tpu_torch', 'test_per_file', ['-d', 'cpu'] + args).output
+    assert 'TOTAL\tCER' in ours
+    assert ours == _run('kraken_tpu', 'test_per_file', args).output

@@ -976,3 +976,90 @@ def test_nlbin_device_on_the_card_equals_the_cpu(cuda_device):
     cpu = flat > 0.5
     near = (flat - 0.5).abs() <= 1e-5
     assert not ((card.cpu() != cpu) & ~near).any()
+
+
+def _ketos_report(args: list) -> str:
+    from click.testing import CliRunner
+    from kraken_tpu_torch.ketos import cli
+    result = CliRunner().invoke(cli, [str(a) for a in args])
+    assert result.exit_code == 0, (result.output, result.exception)
+    return result.output
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('inputs', [[str(p) for p in SMOKE.KETOS_PATH_LINES],
+                                    ['-f', 'binary', str(SMOKE.KETOS_ARROW)]],
+                         ids=['path', 'binary'])
+def test_ketos_test_on_the_card_equals_the_cpu(cuda_device, inputs):
+    """``ketos test`` on the card: the report of ``-d cpu``, byte for byte,
+    the LSTM kernel and the tail launched."""
+    from kraken_tpu_torch.ops.tail import recognition_tail
+    if inputs[0] == '-f':
+        pytest.importorskip('pyarrow')
+    args = ['test', '-m', SMOKE.KETOS_MODEL, *inputs]
+    before = lstm_recurrence.launches, recognition_tail.launches
+    card = _ketos_report(args)
+    assert lstm_recurrence.launches > before[0] and recognition_tail.launches > before[1]
+    assert card.startswith('=== report') and card == _ketos_report(['-d', 'cpu', *args])
+
+
+@pytest.mark.cuda
+def test_recognition_evaluation_on_the_card_equals_the_cpu(cuda_device):
+    """RecognitionModel.test of the flagship recognizer on 70 lines of the
+    fixture page at batch 32, card against CPU: launches counted (3 cluster
+    LSTM launches and 1 tail launch a batch), the CPU's metrics."""
+    from PIL import Image
+    from kraken_tpu_torch.configs import RecognitionTrainingConfig, RecognitionTrainingDataConfig
+    from kraken_tpu_torch.ops.tail import recognition_tail
+    from kraken_tpu_torch.train import RecognitionDataModule, RecognitionModel
+    im = Image.open(RESOURCES / '170025120000003,0074.jpg')
+    out = {}
+    for device in ('cpu', 'cuda'):
+        dm = RecognitionDataModule(RecognitionTrainingDataConfig(
+            test_data=[SMOKE.ketos_page(im, 70)], format_type='xml', batch_size=32))
+        dm.setup('test')
+        module = RecognitionModel(RecognitionTrainingConfig(device=device),
+                                  net=SMOKE.flagship_model('cpu'))
+        module.setup('test', dm)
+        SMOKE.reset_counts(lstm_recurrence)
+        recognition_tail.launches = 0
+        out[device] = module.test(dm)
+        torch.cuda.synchronize()
+    assert lstm_recurrence.design_launches == {'cluster': 3 * 3, 'stream': 0}
+    assert recognition_tail.launches == 3
+    assert out['cuda']['chars'] == out['cpu']['chars']
+    assert abs(out['cuda']['accuracy'] - out['cpu']['accuracy']) <= 2 / out['cpu']['chars']
+
+
+@pytest.mark.cuda
+def test_segmentation_validation_on_the_card_equals_the_cpu(cuda_device):
+    """SegmentationModel.validate of the shipped model on the fixture page,
+    card against CPU: 5 GroupNorm launches, 1 ridge launch, no head launch;
+    the metrics within 1e-6, baseline P/R/F1 equal."""
+    from kraken_tpu_torch.ops.groupnorm import group_norm
+    from kraken_tpu_torch.ops.ridge import sato_ridge_threshold
+    from kraken_tpu_torch.ops.seghead import seg_head
+    from kraken_tpu_torch.configs import (SegmentationTrainingConfig,
+                                          SegmentationTrainingDataConfig)
+    from kraken_tpu_torch.lib.util import default_segmentation_model
+    from kraken_tpu_torch.train import SegmentationDataModule, SegmentationModel
+    out = {}
+    for device in ('cpu', 'cuda'):
+        module = SegmentationModel.load_from_weights(SegmentationTrainingConfig(device=device),
+                                                     default_segmentation_model())
+        cm = module.net.user_metadata['class_mapping']
+        dm = SegmentationDataModule(SegmentationTrainingDataConfig(
+            test_data=[SMOKE.ketos_page(RESOURCES / '170025120000003,0074.jpg')],
+            line_class_mapping=cm['baselines'], region_class_mapping=cm['regions']))
+        dm.setup('test')
+        dm.val_set = dm.test_set
+        module.setup('test', dm)
+        SMOKE.reset_seg_counts()
+        out[device] = module.validate(dm)
+        torch.cuda.synchronize()
+    assert (group_norm.launches, sato_ridge_threshold.launches, seg_head.launches) == (5, 1, 0)
+    for k in out['cpu']:
+        if '_bl_' in k:
+            assert out['cuda'][k] == out['cpu'][k], k
+        else:
+            assert abs(out['cuda'][k] - out['cpu'][k]) <= SMOKE.KETOS_METRIC_ATOL, k

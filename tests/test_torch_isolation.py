@@ -108,6 +108,25 @@ pdf += b'trailer\\n<< /Size 5 /Root 1 0 R >>\\nstartxref\\n%d\\n%%%%EOF\\n' % xr
 doc = os.path.join(tempfile.mkdtemp(), 'doc.pdf')
 open(doc, 'wb').write(bytes(pdf))
 assert [im.size for im in extract_page_images(doc)] == [(600, 400)]
+from kraken_tpu_torch.ketos import cli as ketos
+merge = res + '/merge_tests/'
+ketos.main(['-d', 'cpu', 'test', '-m', merge + 'merge_codec_nfd.mlmodel',
+            merge + '0006.jpg', merge + '0021.jpg'], standalone_mode=False)
+import json
+from kraken_tpu_torch.configs import SegmentationTrainingConfig, SegmentationTrainingDataConfig
+from kraken_tpu_torch.train import SegmentationDataModule, SegmentationModel
+page_json = json.loads(open(res + '/torch_align_page.json', encoding='utf-8').read())
+page_json['imagename'] = res + '/170025120000003,0074.jpg'
+seg_module = SegmentationModel.load_from_weights(SegmentationTrainingConfig(device='cpu'),
+                                                 res + '/blla_small.safetensors')
+cm = seg_module.net.user_metadata['class_mapping']
+dm = SegmentationDataModule(SegmentationTrainingDataConfig(
+    test_data=[Segmentation(**page_json)], line_class_mapping=cm['baselines'],
+    region_class_mapping=cm['regions']))
+dm.setup('test')
+dm.val_set = dm.test_set
+seg_module.setup('test', dm)
+assert seg_module.validate(dm)['val_bl_f1'] > 0.5
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'kraken_tpu'))
 print('FORBIDDEN', bad)
@@ -119,8 +138,9 @@ def test_port_runs_without_jax_or_kraken_tpu(resources):
     (an ocropy and a transformer network among them), its segmentation (the task model and the legacy ``blla.segment``), its
     forced alignment, its neural reading order, its CLI (``segment -bl
     ocr`` to ALTO), its page pipeline, the host and the device nlbin, the
-    legacy box segmenter and the PDF extractor on the CPU and never imports
-    JAX or kraken_tpu (the test process itself has JAX)."""
+    legacy box segmenter, the PDF extractor, ``ketos test`` on path input
+    and a segmentation model's validation on the CPU and never imports JAX
+    or kraken_tpu (the test process itself has JAX)."""
     out = subprocess.run([sys.executable, '-c', _CHILD, str(resources)], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -145,7 +165,15 @@ def test_source_scan_finds_no_jax_imports():
     assert len(files) > 20
     contrib = {p.stem for p in files if p.parent.name == 'contrib'}
     assert {'extract_lines', 'repolygonize', 'segmentation_overlay', 'heatmap_overlay',
-            'print_word_spreader', 'generate_bidi_tables'} <= contrib
+            'print_word_spreader', 'generate_bidi_tables', 'set_seg_options',
+            'add_neural_ro', 'test_per_file'} <= contrib
+    scanned = {str(p.relative_to(REPO / 'kraken_tpu_torch')) for p in files[:-1]}
+    assert {'ketos/__init__.py', 'ketos/recognition.py', 'ketos/segmentation.py',
+            'ketos/dataset.py', 'ketos/weights.py', 'ketos/ro.py', 'ketos/util.py',
+            'train/recognition.py', 'train/segmentation.py', 'train/metrics.py',
+            'dataset/recognition.py', 'dataset/segmentation.py', 'dataset/arrow.py',
+            'dataset/loader.py', 'dataset/utils.py', 'dataset/augmentation.py',
+            'models/writers.py', 'models/_coreml_writer.py'} <= scanned
     found = {str(p.relative_to(REPO)): _forbidden_imports(p.read_text()) for p in files}
     assert {k: v for k, v in found.items() if v} == {}
 
