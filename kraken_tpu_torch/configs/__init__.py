@@ -26,13 +26,11 @@ reads it) or ``linetype`` (the XML readers take the line type as an
 argument); those keys warn as unknown.
 
 The training and data configs (the JAX package's ``TrainingDataConfig``,
-``TrainingConfig`` and their recognition and segmentation subclasses)
-serve evaluation for now: ``ketos test``/``segtest`` and the evaluation
-halves of :mod:`kraken_tpu_torch.train`. The keys only a training loop
-reads (optimizer, schedule, stopping, checkpointing, the spec and resize
-of a new model, the training files and split) have no consumer until
-ROADMAP.md queue 1 item 9b, and ``devices`` none until item 10 (multi-GPU):
-given, they warn with the item's name and are dropped.
+``TrainingConfig`` and their recognition, segmentation and reading-order
+subclasses) keep the JAX keys and defaults and serve the training loops
+and evaluation of :mod:`kraken_tpu_torch.train` and ``ketos``. ``devices``
+has no consumer until ROADMAP.md queue 1 item 10 (multi-GPU): given, it
+warns with the item's name and is dropped.
 """
 import logging
 from collections import defaultdict
@@ -40,7 +38,8 @@ from collections import defaultdict
 __all__ = ['Config', 'RecognitionInferenceConfig', 'SegmentationInferenceConfig',
            'TrainingDataConfig', 'RecognitionTrainingDataConfig',
            'SegmentationTrainingDataConfig', 'TrainingConfig',
-           'RecognitionTrainingConfig', 'SegmentationTrainingConfig']
+           'RecognitionTrainingConfig', 'SegmentationTrainingConfig',
+           'ReadingOrderTrainingConfig', 'RECOGNITION_SPEC_PRESETS']
 
 logger = logging.getLogger(__name__)
 
@@ -132,23 +131,15 @@ class SegmentationInferenceConfig(Config):
 # keys of the JAX package's training configs that nothing in the port reads
 # yet, by the ROADMAP.md queue 1 item that brings their consumer
 _DEFERRED = {
-    '9b (the training loops)': (
-        'training_data', 'partition', 'codec', 'epochs', 'completed_epochs', 'freq',
-        'checkpoint_path', 'weights_format', 'optimizer', 'lrate', 'momentum',
-        'weight_decay', 'gradient_clip_val', 'accumulate_grad_batches', 'schedule',
-        'warmup', 'step_size', 'gamma', 'rop_factor', 'rop_patience', 'cos_t_max',
-        'cos_min_lr', 'quit', 'save_top_k', 'min_epochs', 'lag', 'min_delta', 'remat',
-        'loggers', 'profile_dir', 'spec', 'append', 'resize', 'freeze_backbone',
-        'topline', 'dice_weight'),
     '10 (multi-GPU)': ('devices',),
 }
 
 
-def _drop_deferred(kwargs: dict, keys: tuple) -> None:
-    """Pops the deferred keys among `keys` from `kwargs`, warning with the
-    ROADMAP item that brings their consumer."""
+def _drop_deferred(kwargs: dict) -> None:
+    """Pops the deferred keys from `kwargs`, warning with the ROADMAP item
+    that brings their consumer."""
     for item, deferred in _DEFERRED.items():
-        given = sorted(k for k in keys if k in deferred and k in kwargs)
+        given = sorted(k for k in deferred if k in kwargs)
         for k in given:
             kwargs.pop(k)
         if given:
@@ -172,16 +163,19 @@ class TrainingDataConfig:
     Generic training data configuration.
 
     Args:
-        evaluation_data / test_data: input file lists
+        training_data / evaluation_data / test_data: input file lists (or
+            Segmentations of baseline pages)
+        partition: train/validation split when no evaluation data is given
         num_workers: host data-loading threads
         augment: enable augmentation
         batch_size: batch size
     """
 
     def __init__(self, **kwargs):
-        _drop_deferred(kwargs, ('training_data', 'partition', 'codec'))
+        self.training_data = kwargs.pop('training_data', None)
         self.evaluation_data = kwargs.pop('evaluation_data', None)
         self.test_data = kwargs.pop('test_data', None)
+        self.partition = kwargs.pop('partition', 0.9)
         self.num_workers = kwargs.pop('num_workers', 1)
         self.augment = kwargs.pop('augment', False)
         self.batch_size = kwargs.pop('batch_size', 1)
@@ -196,7 +190,8 @@ class SegmentationTrainingDataConfig(TrainingDataConfig):
     """
     Segmentation data configuration: format type, line/region class
     mappings (auto-assigning by default; labels 0/1 are reserved for the
-    start/end separator channels), line width and page padding.
+    start/end separator channels), topline flag, line width and page
+    padding.
     """
 
     def __init__(self, **kwargs):
@@ -204,18 +199,18 @@ class SegmentationTrainingDataConfig(TrainingDataConfig):
         self.format_type = kwargs.pop('format_type', 'xml')
         self.line_class_mapping = kwargs.pop('line_class_mapping', defaultdict(counter))
         self.region_class_mapping = kwargs.pop('region_class_mapping', defaultdict(counter))
+        self.topline = kwargs.pop('topline', False)
         self.line_width = kwargs.pop('line_width', 4)
         # (left/right, top/bottom) padding around the page image
         self.padding = kwargs.pop('padding', (0, 0))
-        _drop_deferred(kwargs, ('topline',))
         super().__init__(**kwargs)
 
 
 class RecognitionTrainingDataConfig(TrainingDataConfig):
     """
-    Recognition data configuration: format type (xml/path/binary), line
-    type filter, binary dataset split flag, line padding and the text
-    transforms.
+    Recognition data configuration: format type (xml/path/binary), an
+    optional explicit codec, line type filter, binary dataset split flag,
+    line padding and the text transforms.
     """
 
     def __init__(self, **kwargs):
@@ -223,6 +218,7 @@ class RecognitionTrainingDataConfig(TrainingDataConfig):
         self.format_type = kwargs.pop('format_type', 'xml')
         self.linetype = kwargs.pop('linetype', None)
         self.pad = kwargs.pop('pad', 16)
+        self.codec = kwargs.pop('codec', None)
         self.normalization = kwargs.pop('normalization', None)
         self.normalize_whitespace = kwargs.pop('normalize_whitespace', True)
         self.reorder = kwargs.pop('reorder', True)
@@ -230,23 +226,106 @@ class RecognitionTrainingDataConfig(TrainingDataConfig):
         super().__init__(**kwargs)
 
 
+# named VGSL presets accepted wherever a spec is (`-s tpu`), the JAX
+# package's: 'default' is the reference's CNN+3xBiLSTM-200, 'tpu' strided
+# 128-channel convolutions with GroupNorm, 'tpu-attn' rotary-attention
+# encoder blocks instead of the BiLSTMs
+RECOGNITION_SPEC_PRESETS = {
+    'default': ('[1,120,0,1 Cr3,13,32 Do0.1,2 Mp2,2 Cr3,13,32 Do0.1,2 Mp2,2 '
+                'Cr3,9,64 Do0.1,2 Mp2,2 Cr3,9,64 Do0.1,2 S1(1x0)1,3 Lbx200 '
+                'Do0.1,2 Lbx200 Do0.1,2 Lbx200 Do]'),
+    'tpu': ('[1,120,0,1 Cr3,7,128,2,2 Gn32 Cr3,7,128,2,2 Gn32 '
+            'Cr3,7,128,2,2 Gn32 S1(1x0)1,3 Lbx200 Do0.1,2 Lbx200 Do0.1,2 '
+            'Lbx200 Do]'),
+    'tpu-attn': ('[1,120,0,1 S1(30x4)1,3 Cr3,13,32 Do0.1,2 Mp2,2 '
+                 'Cr3,13,32 Do0.1,2 Mp2,2 Cr3,9,64 Do0.1,2 Mp2,2 '
+                 'Cr3,9,64 Do0.1,2 S1(1x0)1,3 Cl1,1,256 Te8,256,1024 '
+                 'Te8,256,1024 Te8,256,1024 Te8,256,1024 Do0.1,2]'),
+}
+
+SEGMENTATION_SPEC = ('[1,1800,0,3 Cr7,7,64,2,2 Gn32 Cr3,3,128,2,2 Gn32 Cr3,3,128 Gn32 '
+                     'Cr3,3,256 Gn32]')
+
+
 class TrainingConfig(Config):
-    """Generic training configuration: so far its device, precision and
-    batch size (the training keys wait for queue 1 item 9b)."""
+    """
+    Generic training configuration: optimizer, schedule, early stopping,
+    checkpointing (reference: configs/base.py:288-376), with the JAX
+    package's keys and defaults. Training runs in float32 whatever
+    ``precision`` says, as the JAX training does.
+    """
 
     def __init__(self, **kwargs):
-        _drop_deferred(kwargs, tuple(k for keys in _DEFERRED.values() for k in keys))
+        _drop_deferred(kwargs)
+        self.epochs = kwargs.pop('epochs', -1)
+        self.completed_epochs = kwargs.pop('completed_epochs', 0)
+        self.freq = kwargs.pop('freq', 1.0)
+        self.checkpoint_path = kwargs.pop('checkpoint_path', 'model')
+        self.weights_format = kwargs.pop('weights_format', 'safetensors')
+        self.optimizer = kwargs.pop('optimizer', 'AdamW')
+        self.lrate = kwargs.pop('lrate', 1e-5)
+        self.momentum = kwargs.pop('momentum', 0.9)
+        self.weight_decay = kwargs.pop('weight_decay', 0.0)
+        self.gradient_clip_val = kwargs.pop('gradient_clip_val', 1.0)
+        self.accumulate_grad_batches = kwargs.pop('accumulate_grad_batches', 1)
+        self.schedule = kwargs.pop('schedule', 'constant')
+        self.warmup = kwargs.pop('warmup', 0)
+        self.step_size = kwargs.pop('step_size', 10)
+        self.gamma = kwargs.pop('gamma', 0.1)
+        self.rop_factor = kwargs.pop('rop_factor', 0.1)
+        self.rop_patience = kwargs.pop('rop_patience', 5)
+        self.cos_t_max = kwargs.pop('cos_t_max', 10)
+        self.cos_min_lr = kwargs.pop('cos_min_lr', 1e-6)
+        self.quit = kwargs.pop('quit', 'fixed')
+        # the K best epoch checkpoints by validation metric stay
+        # (reference: ModelCheckpoint(save_top_k=10)); <= 0 keeps all
+        self.save_top_k = kwargs.pop('save_top_k', 10)
+        self.min_epochs = kwargs.pop('min_epochs', 0)
+        self.lag = kwargs.pop('lag', 10)
+        self.min_delta = kwargs.pop('min_delta', 0.0)
+        # re-run the forward in the backward (torch.utils.checkpoint)
+        self.remat = kwargs.pop('remat', False)
+        # experiment logger ('tensorboard', 'wandb' or None) and a
+        # torch.profiler trace directory for the first epoch
+        self.loggers = kwargs.pop('loggers', None)
+        self.profile_dir = kwargs.pop('profile_dir', None)
         super().__init__(**kwargs)
 
 
 class RecognitionTrainingConfig(TrainingConfig):
     """Recognition-specific training configuration."""
 
+    def __init__(self, **kwargs):
+        spec = kwargs.pop('spec', 'default')
+        self.spec = RECOGNITION_SPEC_PRESETS.get(spec, spec)
+        self.append = kwargs.pop('append', None)
+        self.resize = kwargs.pop('resize', 'fail')
+        # all but the output layer frozen for the first N steps
+        self.freeze_backbone = kwargs.pop('freeze_backbone', 0)
+        kwargs.setdefault('lrate', 1e-3)
+        kwargs.setdefault('optimizer', 'AdamW')
+        super().__init__(**kwargs)
+
 
 class SegmentationTrainingConfig(TrainingConfig):
     """Segmentation-specific training configuration."""
 
     def __init__(self, **kwargs):
+        self.spec = kwargs.pop('spec', SEGMENTATION_SPEC)
+        self.resize = kwargs.pop('resize', 'fail')
+        self.topline = kwargs.pop('topline', False)
+        self.dice_weight = kwargs.pop('dice_weight', 0.5)
         # tolerance (px) for baseline-detection validation matching
         self.bl_tol = kwargs.pop('bl_tol', 25.0)
+        kwargs.setdefault('lrate', 2e-4)
+        super().__init__(**kwargs)
+
+
+class ReadingOrderTrainingConfig(TrainingConfig):
+    """Reading-order model training configuration."""
+
+    def __init__(self, **kwargs):
+        self.level = kwargs.pop('level', 'baselines')
+        self.reading_order = kwargs.pop('reading_order', 'line_implicit')
+        kwargs.setdefault('lrate', 1e-3)
         super().__init__(**kwargs)

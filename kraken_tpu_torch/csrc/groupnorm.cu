@@ -59,6 +59,10 @@
 //   walks one row at a time, lanes on neighbouring columns, so every load
 //   and store is coalesced and a ragged row end idles at most one
 //   iteration of the warp.
+//
+// Training: given a `stats` buffer either design also writes each (sample,
+// group)'s mean and rstd; groupnorm_backward (two launches on the stream
+// design's grids, see "backward" below) gives the gradient.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -149,8 +153,8 @@ __global__ void __launch_bounds__(kThreads) groupnorm_stats_kernel(
 template <typename T>
 __global__ void __launch_bounds__(kThreads) groupnorm_apply_kernel(
     const T* __restrict__ x, const int* __restrict__ lens, const float* __restrict__ partial,
-    const float* __restrict__ weight, const float* __restrict__ bias, T* __restrict__ y, int G,
-    int Cg, int H, int W, int rows_per_block, float eps) {
+    const float* __restrict__ weight, const float* __restrict__ bias, T* __restrict__ y,
+    float* __restrict__ stats, int G, int Cg, int H, int W, int rows_per_block, float eps) {
   const int ng = blockIdx.y;
   const int L = valid_cols(lens, ng / G, W);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -164,6 +168,10 @@ __global__ void __launch_bounds__(kThreads) groupnorm_apply_kernel(
     if (lane == 0) {
       s_mean = s.mean;
       s_rstd = 1.f / sqrtf(s.m2 / s.n + eps);
+      if (stats != nullptr && blockIdx.x == 0) {
+        stats[2 * ng] = s_mean;
+        stats[2 * ng + 1] = s_rstd;
+      }
     }
   }
   __syncthreads();
@@ -186,7 +194,7 @@ __global__ void __launch_bounds__(kThreads) groupnorm_apply_kernel(
 
 template <typename T>
 cudaError_t launch(const void* x, const int* lens, float* partial, const float* weight,
-                   const float* bias, void* y, int N, int C, int H, int W, int G, int S,
+                   const float* bias, void* y, float* stats, int N, int C, int H, int W, int G, int S,
                    float eps, cudaStream_t stream) {
   const int Cg = C / G;
   const int rows = Cg * H;
@@ -197,8 +205,8 @@ cudaError_t launch(const void* x, const int* lens, float* partial, const float* 
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   groupnorm_apply_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), lens, partial,
-                                                           weight, bias, static_cast<T*>(y), G, Cg,
-                                                           H, W, rows_per_block, eps);
+                                                           weight, bias, static_cast<T*>(y), stats,
+                                                           G, Cg, H, W, rows_per_block, eps);
   return cudaGetLastError();
 }
 
@@ -328,7 +336,8 @@ __device__ __forceinline__ float block_sum(float v, float* slots) {
 template <typename T>
 __global__ void __launch_bounds__(kClusterThreads) groupnorm_cluster_kernel(
     const T* __restrict__ x, const int* __restrict__ lens, const float* __restrict__ weight,
-    const float* __restrict__ bias, T* __restrict__ y, int G, int Cg, int H, int W, float eps) {
+    const float* __restrict__ bias, T* __restrict__ y, float* __restrict__ stats, int G, int Cg,
+    int H, int W, float eps) {
   cg::cluster_group cluster = cg::this_cluster();
   const int CL = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -468,6 +477,10 @@ __global__ void __launch_bounds__(kClusterThreads) groupnorm_cluster_kernel(
     if (lane == 0) {
       s_mean = mean;
       s_rstd = 1.f / sqrtf(m2 / n + eps);
+      if (stats != nullptr && rank == 0) {
+        stats[2 * ng] = s_mean;
+        stats[2 * ng + 1] = s_rstd;
+      }
     }
   }
   __syncthreads();
@@ -519,7 +532,7 @@ __global__ void __launch_bounds__(kClusterThreads) groupnorm_cluster_kernel(
 // asks how many such clusters the card holds at once (*max_clusters).
 template <typename T>
 cudaError_t launch_cluster(const void* x, const int* lens, const float* weight, const float* bias,
-                           void* y, int N, int C, int H, int W, int G, int CL, float eps,
+                           void* y, float* stats, int N, int C, int H, int W, int G, int CL, float eps,
                            cudaStream_t stream, int* max_clusters, size_t* smem_out) {
   auto kernel = groupnorm_cluster_kernel<T>;
   const int Cg = C / G, rows = Cg * H;
@@ -548,7 +561,122 @@ cudaError_t launch_cluster(const void* x, const int* lens, const float* weight, 
     return err;
   }
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), lens, weight, bias,
-                            static_cast<T*>(y), G, Cg, H, W, eps);
+                            static_cast<T*>(y), stats, G, Cg, H, W, eps);
+}
+
+// ----------------------------------------------------------------- backward
+
+// The gradient of the padding-aware GroupNorm (the training path), fp32, in
+// two launches on the stream design's grids. With x̂ = (x - mean) * rstd of
+// the forward (its mean and rstd per (sample, group), which the forward
+// writes when given `stats`), m = [w < L] and dŷ = dy * weight[c] * m:
+//   dx = rstd * (dŷ - mean_m(dŷ) - x̂ * mean_m(dŷ * x̂)) * m
+// the means over the group's valid elements (count Cg * H * L). Both means
+// come from per-(sample, channel) sums A = Σ dy x̂ m and B = Σ dy m:
+// mean_m(dŷ x̂) = Σ_c weight[c] A[n, c] / count, mean_m(dŷ) = Σ_c weight[c]
+// B[n, c] / count. Launch 1 (groupnorm_bwd_sums_kernel, grid (S1, N*C))
+// writes each block's partial (A, B) of its rows of one (n, c) plane;
+// launch 2 (groupnorm_bwd_apply_kernel, grid (S2, N*G)) merges its group's
+// partials (one warp, a fixed order) and writes dx over its rows, zero at
+// the pad columns. The partials also give d weight = Σ_n A and d bias =
+// Σ_n B, which the wrapper sums with torch.
+
+__device__ __forceinline__ float block_sum256(float v, float* slots) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0) slots[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = slots[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) t += slots[w];
+  return t;
+}
+
+// grid (S1, N*C): block s of plane nc takes rows [s*rows_per_block, ...) of
+// its H rows; partial[(nc * S1 + s) * 2 + {0, 1}] = (A, B) of those rows
+__global__ void __launch_bounds__(kThreads) groupnorm_bwd_sums_kernel(
+    const float* __restrict__ x, const float* __restrict__ dy, const int* __restrict__ lens,
+    const float* __restrict__ stats, float* __restrict__ partial, int C, int G, int H, int W,
+    int rows_per_block) {
+  const int nc = blockIdx.y;
+  const int n = nc / C, g = (nc % C) / (C / G);
+  const int L = valid_cols(lens, n, W);
+  const float mean = stats[2 * (n * G + g)], rstd = stats[2 * (n * G + g) + 1];
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(r0 + rows_per_block, H);
+  const size_t base = (size_t)nc * H * W;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float a = 0.f, b = 0.f;
+  for (int r = r0 + warp; r < r1; r += kWarps) {
+    const float* xr = x + base + (size_t)r * W;
+    const float* dr = dy + base + (size_t)r * W;
+    for (int col = lane; col < L; col += 32) {
+      const float d = dr[col];
+      a += d * (xr[col] - mean) * rstd;
+      b += d;
+    }
+  }
+  __shared__ float slots[2][kWarps];
+  a = block_sum256(a, slots[0]);
+  b = block_sum256(b, slots[1]);
+  if (threadIdx.x == 0) {
+    float* p = partial + ((size_t)nc * gridDim.x + blockIdx.x) * 2;
+    p[0] = a;
+    p[1] = b;
+  }
+}
+
+// grid (S2, N*G): block s of group ng merges the group's Cg * S1 partials,
+// then writes dx over rows [s*rows_per_block, ...) of its Cg*H rows
+__global__ void __launch_bounds__(kThreads) groupnorm_bwd_apply_kernel(
+    const float* __restrict__ x, const float* __restrict__ dy, const int* __restrict__ lens,
+    const float* __restrict__ stats, const float* __restrict__ partial, const float* __restrict__ weight,
+    float* __restrict__ dx, int G, int Cg, int H, int W, int S1, int rows_per_block) {
+  const int ng = blockIdx.y;
+  const int n = ng / G;
+  const int L = valid_cols(lens, n, W);
+  const int c0 = (ng % G) * Cg;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __shared__ float s_ma, s_mb;
+  if (warp == 0) {
+    // Σ_c weight[c] (A, B) over the group's channels and their S1 partials
+    const float* p = partial + ((size_t)n * (G * Cg) + c0) * S1 * 2;
+    float a = 0.f, b = 0.f;
+    for (int i = lane; i < Cg * S1; i += 32) {
+      const float w = weight[c0 + i / S1];
+      a += w * p[2 * i];
+      b += w * p[2 * i + 1];
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, off);
+      b += __shfl_xor_sync(0xffffffffu, b, off);
+    }
+    if (lane == 0) {
+      const float count = (float)Cg * (float)H * (float)L;
+      s_ma = a / count;
+      s_mb = b / count;
+    }
+  }
+  __syncthreads();
+  const float mean = stats[2 * ng], rstd = stats[2 * ng + 1];
+  const float ma = s_ma, mb = s_mb;
+  const int rows = Cg * H;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(r0 + rows_per_block, rows);
+  const size_t base = (size_t)ng * rows * W;
+  for (int r = r0 + warp; r < r1; r += kWarps) {
+    const float w = weight[c0 + r / H];
+    const float* xr = x + base + (size_t)r * W;
+    const float* dr = dy + base + (size_t)r * W;
+    float* out = dx + base + (size_t)r * W;
+    for (int col = lane; col < W; col += 32) {
+      float v = 0.f;
+      if (col < L) {
+        const float xh = (xr[col] - mean) * rstd;
+        v = rstd * (dr[col] * w - mb - xh * ma);
+      }
+      out[col] = v;
+    }
+  }
 }
 
 }  // namespace
@@ -557,9 +685,11 @@ cudaError_t launch_cluster(const void* x, const int* lens, const float* weight, 
 // groupnorm_forward below; CL CTAs (1..16) per (sample, group), at most
 // Cg*H of them. Returns a cudaError_t (0 = launched); a cluster shape the
 // card cannot hold is refused by the launch.
+// stats: N*G*2 fp32 (mean, rstd of each (sample, group)) written for the
+// backward, or null (both designs).
 extern "C" int groupnorm_cluster(const void* x, const void* lens, const void* weight,
-                                 const void* bias, void* y, int N, int C, int H, int W, int G,
-                                 int CL, float eps, int dtype, int device, void* stream) {
+                                 const void* bias, void* y, void* stats, int N, int C, int H, int W,
+                                 int G, int CL, float eps, int dtype, int device, void* stream) {
   if (N <= 0 || C <= 0 || H <= 0 || W <= 0 || G <= 0 || C % G || CL < 1 || CL > 16 ||
       CL > (C / G) * H || y == nullptr) {
     return (int)cudaErrorInvalidValue;
@@ -572,10 +702,11 @@ extern "C" int groupnorm_cluster(const void* x, const void* lens, const void* we
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int clusters = 0;
   size_t smem = 0;
+  float* st = static_cast<float*>(stats);
   switch (dtype) {
-    case 0: err = launch_cluster<float>(x, l, w, b, y, N, C, H, W, G, CL, eps, s, &clusters, &smem); break;
-    case 1: err = launch_cluster<__nv_bfloat16>(x, l, w, b, y, N, C, H, W, G, CL, eps, s, &clusters, &smem); break;
-    case 2: err = launch_cluster<__half>(x, l, w, b, y, N, C, H, W, G, CL, eps, s, &clusters, &smem); break;
+    case 0: err = launch_cluster<float>(x, l, w, b, y, st, N, C, H, W, G, CL, eps, s, &clusters, &smem); break;
+    case 1: err = launch_cluster<__nv_bfloat16>(x, l, w, b, y, st, N, C, H, W, G, CL, eps, s, &clusters, &smem); break;
+    case 2: err = launch_cluster<__half>(x, l, w, b, y, st, N, C, H, W, G, CL, eps, s, &clusters, &smem); break;
     default: return (int)cudaErrorInvalidValue;
   }
   // a refused call also leaves its error as the runtime's last error: clear
@@ -600,9 +731,9 @@ extern "C" int groupnorm_cluster_occupancy(int C, int H, int W, int G, int CL, i
   *max_clusters = 0;
   *threads = kClusterThreads;
   switch (dtype) {
-    case 0: err = launch_cluster<float>(nullptr, nullptr, nullptr, nullptr, nullptr, 1, C, H, W, G, CL, 0.f, 0, max_clusters, &smem); break;
-    case 1: err = launch_cluster<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr, nullptr, 1, C, H, W, G, CL, 0.f, 0, max_clusters, &smem); break;
-    case 2: err = launch_cluster<__half>(nullptr, nullptr, nullptr, nullptr, nullptr, 1, C, H, W, G, CL, 0.f, 0, max_clusters, &smem); break;
+    case 0: err = launch_cluster<float>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, C, H, W, G, CL, 0.f, 0, max_clusters, &smem); break;
+    case 1: err = launch_cluster<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, C, H, W, G, CL, 0.f, 0, max_clusters, &smem); break;
+    case 2: err = launch_cluster<__half>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, C, H, W, G, CL, 0.f, 0, max_clusters, &smem); break;
     default: return (int)cudaErrorInvalidValue;
   }
   *smem_bytes = (int)smem;
@@ -616,8 +747,8 @@ extern "C" int groupnorm_cluster_occupancy(int C, int H, int W, int G, int CL, i
 // partial: N*G*S*3 fp32 scratch. S: blocks per group, with every block
 // holding at least one row: (S - 1) * ceil(Cg*H / S) < Cg*H.
 extern "C" int groupnorm_forward(const void* x, const void* lens, void* partial, const void* weight,
-                                 const void* bias, void* y, int N, int C, int H, int W, int G, int S,
-                                 float eps, int dtype, int device, void* stream) {
+                                 const void* bias, void* y, void* stats, int N, int C, int H, int W,
+                                 int G, int S, float eps, int dtype, int device, void* stream) {
   if (N <= 0 || C <= 0 || H <= 0 || W <= 0 || G <= 0 || C % G || S <= 0 || N * G > 65535) {
     return (int)cudaErrorInvalidValue;
   }
@@ -630,10 +761,44 @@ extern "C" int groupnorm_forward(const void* x, const void* lens, void* partial,
   const float* w = static_cast<const float*>(weight);
   const float* b = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* st = static_cast<float*>(stats);
   switch (dtype) {
-    case 0: return (int)launch<float>(x, l, p, w, b, y, N, C, H, W, G, S, eps, s);
-    case 1: return (int)launch<__nv_bfloat16>(x, l, p, w, b, y, N, C, H, W, G, S, eps, s);
-    case 2: return (int)launch<__half>(x, l, p, w, b, y, N, C, H, W, G, S, eps, s);
+    case 0: return (int)launch<float>(x, l, p, w, b, y, st, N, C, H, W, G, S, eps, s);
+    case 1: return (int)launch<__nv_bfloat16>(x, l, p, w, b, y, st, N, C, H, W, G, S, eps, s);
+    case 2: return (int)launch<__half>(x, l, p, w, b, y, st, N, C, H, W, G, S, eps, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The gradient (two launches): x, dy, dx (N, C, H, W) fp32 contiguous; lens
+// as for the forward; stats the forward's (mean, rstd) of each (sample,
+// group); weight C fp32; partial N*C*S1*2 fp32, each (n, c) plane's S1
+// partial (Σ dy x̂, Σ dy) over its valid columns (S1 blocks a plane, each
+// holding at least one of its H rows), read by the wrapper for d weight and
+// d bias; S2 blocks a group as S in groupnorm_forward.
+extern "C" int groupnorm_backward(const void* x, const void* dy, const void* lens, const void* stats,
+                                  const void* weight, void* partial, void* dx, int N, int C, int H,
+                                  int W, int G, int S1, int S2, int device, void* stream) {
+  if (N <= 0 || C <= 0 || H <= 0 || W <= 0 || G <= 0 || C % G || S1 <= 0 || S2 <= 0 ||
+      N * C > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int Cg = C / G, rows = Cg * H;
+  const int rpb1 = (H + S1 - 1) / S1, rpb2 = (rows + S2 - 1) / S2;
+  if ((S1 - 1) * rpb1 >= H || (S2 - 1) * rpb2 >= rows) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const float* x_ = static_cast<const float*>(x);
+  const float* dy_ = static_cast<const float*>(dy);
+  const int* l = static_cast<const int*>(lens);
+  const float* st = static_cast<const float*>(stats);
+  float* p = static_cast<float*>(partial);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  groupnorm_bwd_sums_kernel<<<dim3(S1, N * C), kThreads, 0, s>>>(x_, dy_, l, st, p, C, G, H, W, rpb1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  groupnorm_bwd_apply_kernel<<<dim3(S2, N * G), kThreads, 0, s>>>(
+      x_, dy_, l, st, p, static_cast<const float*>(weight), static_cast<float*>(dx), G, Cg, H, W, S1,
+      rpb2);
+  return (int)cudaGetLastError();
 }

@@ -71,6 +71,20 @@
 //   exchanged through double-buffered shared memory, one __syncthreads()
 //   per step.
 //
+// Training (ops/lstm.py:LSTMRecurrence, an autograd.Function). Both
+//   designs take three more pointers, null for inference: given them, the
+//   forward also writes, per step, the activated gates, the cell carry after
+//   the step and the h carry before it, fp32. The carry is frozen at a masked
+//   step, so the cell carry saved there is the one before it. The gradient
+//   is lstm_backward_kernel: the stream design's shape (a block per tile of 4
+//   rows and direction, both directions in one launch, w_hh read from L2
+//   every step), each direction walking its steps in the reverse of its
+//   forward order; see the kernel for its math. Its 4H-long sum of
+//   dh = dgates @ w_hh a step is split over up to 8 slices of the block's
+//   threads. dW_hh, the peephole weights' gradients and everything that is a
+//   product over all steps at once stay in torch (as XLA computes them outside
+//   any kernel in the JAX package).
+//
 // Layouts (all contiguous):
 //   gates  (B, T, D, 4H)  fp32 | bf16 | fp16, biases included
 //   w_hh   (D, 4H, H)     fp32 | bf16 | fp16, the torch weight_hh (cluster)
@@ -78,6 +92,8 @@
 //   mask   (B, T)         bool (one byte)
 //   peep   (D, 3, H)      fp32 (w_ip, w_fp, w_op), or null for the plain cell
 //   out    (B, T, D, H)   the type of gates
+//   saved  gates (B, T, D, 4H), c and h (B, T, D, H), fp32 (training only)
+//   dgates (B, T, D, 4H)  fp32, the backward's output
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -104,6 +120,21 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 template <> __device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half(v); }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// What the training forward keeps of step (b, t, d) = row o of unit u for
+// the backward: the activated gates, the cell carry after the step and the
+// h carry before it (fp32, (B, T, D, 4H) and (B, T, D, H))
+__device__ __forceinline__ void save_step(float* save_gates, float* save_c, float* save_h, size_t o,
+                                          int H, int u, float ig, float fg, float gg, float og,
+                                          float c_carry, float h_before) {
+  float* sg = save_gates + o * 4 * H + u;
+  sg[0] = ig;
+  sg[H] = fg;
+  sg[2 * H] = gg;
+  sg[3 * H] = og;
+  save_c[o * H + u] = c_carry;
+  save_h[o * H + u] = h_before;
+}
 
 // dtype codes shared with the wrapper: 0 = fp32, 1 = bf16, 2 = fp16
 __device__ __forceinline__ float load_f32(const void* p, int dtype, size_t i) {
@@ -193,6 +224,7 @@ template <typename T, int ITERS, bool PEEP>
 __global__ void __launch_bounds__(CLUSTER_THREADS) lstm_cluster_kernel(
     const T* __restrict__ gates, const void* __restrict__ w_hh, int w_dtype,
     const uint8_t* __restrict__ mask, const float* __restrict__ peep, T* __restrict__ out,
+    float* __restrict__ save_gates, float* __restrict__ save_c, float* __restrict__ save_h,
     int B, int T_len, int D, int H, int R, int reverse0) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
@@ -344,18 +376,26 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) lstm_cluster_kernel(
         float* c = c_s + 4 * item + ks;
         const float h_old = reinterpret_cast<const float*>(hc + (size_t)rg * HP + u)[ks];
         const float c_old = *c;
-        float c_new, h_new;
+        float ig, fg, og, c_new;
+        const float gg = tanhf(pre[2]);
         if constexpr (PEEP) {
-          c_new = sigmoid(pre[1] + pw[it][1] * c_old) * c_old +
-                  sigmoid(pre[0] + pw[it][0] * c_old) * tanhf(pre[2]);
-          h_new = sigmoid(pre[3] + pw[it][2] * c_new) * tanhf(c_new);
+          ig = sigmoid(pre[0] + pw[it][0] * c_old);
+          fg = sigmoid(pre[1] + pw[it][1] * c_old);
+          c_new = fg * c_old + ig * gg;
+          og = sigmoid(pre[3] + pw[it][2] * c_new);
         } else {
-          c_new = sigmoid(pre[1]) * c_old + sigmoid(pre[0]) * tanhf(pre[2]);
-          h_new = sigmoid(pre[3]) * tanhf(c_new);
+          ig = sigmoid(pre[0]);
+          fg = sigmoid(pre[1]);
+          og = sigmoid(pre[3]);
+          c_new = fg * c_old + ig * gg;
         }
+        const float h_new = og * tanhf(c_new);
         if (m[it]) *c = c_new;
         h_out = m[it] ? h_new : h_old;
-        out[(((size_t)b * T_len + t) * D + d) * H + u] = from_f32<T>(m[it] ? h_new : 0.f);
+        const size_t o = ((size_t)b * T_len + t) * D + d;
+        out[o * H + u] = from_f32<T>(m[it] ? h_new : 0.f);
+        if (save_gates != nullptr) save_step(save_gates, save_c, save_h, o, H, u, ig, fg, gg, og,
+                                             m[it] ? c_new : c_old, h_old);
       }
       // the 4 rows of unit u as one float4, sent by the 4 lanes to all C CTAs;
       // nothing is sent after the last step, so no store outlives a CTA
@@ -370,11 +410,18 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) lstm_cluster_kernel(
   }
 }
 
+// the training forward's buffers (save_step), all null for inference
+struct Saved {
+  float* gates;
+  float* c;
+  float* h;
+};
+
 template <typename T, int ITERS, bool PEEP>
 cudaError_t launch_cluster_iters(const ClusterShape& s, const void* gates, const void* w_hh, int w_dtype,
-                                 const uint8_t* mask, const float* peep, void* out, int B, int T_len,
-                                 int D, int H, int C, int R, int reverse0, cudaStream_t stream,
-                                 int* max_clusters) {
+                                 const uint8_t* mask, const float* peep, void* out, Saved sv, int B,
+                                 int T_len, int D, int H, int C, int R, int reverse0,
+                                 cudaStream_t stream, int* max_clusters) {
   auto kernel = lstm_cluster_kernel<T, ITERS, PEEP>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
   if (err != cudaSuccess) return err;
@@ -399,32 +446,32 @@ cudaError_t launch_cluster_iters(const ClusterShape& s, const void* gates, const
   if (*max_clusters == 0) return cudaErrorLaunchOutOfResources;
   if (gates == nullptr) return cudaSuccess;  // a query only (lstm_cluster_occupancy)
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(gates), w_hh, w_dtype, mask, peep,
-                            static_cast<T*>(out), B, T_len, D, H, R, reverse0);
+                            static_cast<T*>(out), sv.gates, sv.c, sv.h, B, T_len, D, H, R, reverse0);
 }
 
 template <typename T, bool PEEP>
 cudaError_t launch_cluster_peep(const ClusterShape& s, const void* gates, const void* w_hh, int w_dtype,
-                                const uint8_t* mask, const float* peep, void* out, int B, int T_len,
-                                int D, int H, int C, int R, int reverse0, cudaStream_t stream,
-                                int* max_clusters) {
+                                const uint8_t* mask, const float* peep, void* out, Saved sv, int B,
+                                int T_len, int D, int H, int C, int R, int reverse0,
+                                cudaStream_t stream, int* max_clusters) {
   switch (s.iters) {
-    case 1: return launch_cluster_iters<T, 1, PEEP>(s, gates, w_hh, w_dtype, mask, peep, out, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
-    case 2: return launch_cluster_iters<T, 2, PEEP>(s, gates, w_hh, w_dtype, mask, peep, out, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
-    case 3: return launch_cluster_iters<T, 3, PEEP>(s, gates, w_hh, w_dtype, mask, peep, out, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
-    case 4: return launch_cluster_iters<T, 4, PEEP>(s, gates, w_hh, w_dtype, mask, peep, out, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
+    case 1: return launch_cluster_iters<T, 1, PEEP>(s, gates, w_hh, w_dtype, mask, peep, out, sv, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
+    case 2: return launch_cluster_iters<T, 2, PEEP>(s, gates, w_hh, w_dtype, mask, peep, out, sv, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
+    case 3: return launch_cluster_iters<T, 3, PEEP>(s, gates, w_hh, w_dtype, mask, peep, out, sv, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
+    case 4: return launch_cluster_iters<T, 4, PEEP>(s, gates, w_hh, w_dtype, mask, peep, out, sv, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
     default: return cudaErrorInvalidValue;  // units * R above MAX_ITERS * CLUSTER_THREADS
   }
 }
 
 template <typename T>
 cudaError_t launch_cluster(const void* gates, const void* w_hh, int w_dtype, const uint8_t* mask,
-                           const float* peep, void* out, int B, int T_len, int D, int H, int C, int R,
-                           int reverse0, cudaStream_t stream, int* max_clusters) {
+                           const float* peep, void* out, Saved sv, int B, int T_len, int D, int H,
+                           int C, int R, int reverse0, cudaStream_t stream, int* max_clusters) {
   const ClusterShape s = cluster_shape(H, C, R);
   if (peep != nullptr) {
-    return launch_cluster_peep<T, true>(s, gates, w_hh, w_dtype, mask, peep, out, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
+    return launch_cluster_peep<T, true>(s, gates, w_hh, w_dtype, mask, peep, out, sv, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
   }
-  return launch_cluster_peep<T, false>(s, gates, w_hh, w_dtype, mask, peep, out, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
+  return launch_cluster_peep<T, false>(s, gates, w_hh, w_dtype, mask, peep, out, sv, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
 }
 
 // ------------------------------------------------------------------- stream
@@ -439,7 +486,7 @@ __global__ void __launch_bounds__(1024) lstm_stream_kernel(const T* __restrict__
                                        const float* __restrict__ w_hh_t,
                                        const uint8_t* __restrict__ mask,
                                        const float* __restrict__ peep,
-                                       T* __restrict__ out,
+                                       T* __restrict__ out, Saved sv,
                                        int B, int T_len, int D, int H, int reverse0) {
   // h of the tile, [2 buffers][H][ROWS]: one float4 read gives all rows of unit j
   extern __shared__ float4 h_smem[];
@@ -499,26 +546,29 @@ __global__ void __launch_bounds__(1024) lstm_stream_kernel(const T* __restrict__
       for (int r = 0; r < ROWS; ++r) {
         const int b = row0 + r;
         if (b >= B) continue;
-        float c_new, h_new;
+        float ig, fg, og, c_new;
+        const float gg = tanhf(acc[2][r]);
         if constexpr (PEEP) {
-          const float ig = sigmoid(acc[0][r] + pw[0] * c[r]);
-          const float fg = sigmoid(acc[1][r] + pw[1] * c[r]);
-          c_new = fg * c[r] + ig * tanhf(acc[2][r]);
-          h_new = sigmoid(acc[3][r] + pw[2] * c_new) * tanhf(c_new);
-        } else {
-          const float ig = sigmoid(acc[0][r]);
-          const float fg = sigmoid(acc[1][r]);
-          const float gg = tanhf(acc[2][r]);
-          const float og = sigmoid(acc[3][r]);
+          ig = sigmoid(acc[0][r] + pw[0] * c[r]);
+          fg = sigmoid(acc[1][r] + pw[1] * c[r]);
           c_new = fg * c[r] + ig * gg;
-          h_new = og * tanhf(c_new);
+          og = sigmoid(acc[3][r] + pw[2] * c_new);
+        } else {
+          ig = sigmoid(acc[0][r]);
+          fg = sigmoid(acc[1][r]);
+          og = sigmoid(acc[3][r]);
+          c_new = fg * c[r] + ig * gg;
         }
+        const float h_new = og * tanhf(c_new);
         const bool m = mask[(size_t)b * T_len + t] != 0;
+        const float h_before = h[r];
         if (m) {
           c[r] = c_new;
           h[r] = h_new;
         }
-        out[(((size_t)b * T_len + t) * D + d) * H + k] = from_f32<T>(m ? h_new : 0.f);
+        const size_t o = ((size_t)b * T_len + t) * D + d;
+        out[o * H + k] = from_f32<T>(m ? h_new : 0.f);
+        if (sv.gates != nullptr) save_step(sv.gates, sv.c, sv.h, o, H, k, ig, fg, gg, og, c[r], h_before);
       }
       h_smem[(cur ^ 1) * H + k] = make_float4(h[0], h[1], h[2], h[3]);
     }
@@ -529,18 +579,161 @@ __global__ void __launch_bounds__(1024) lstm_stream_kernel(const T* __restrict__
 
 template <typename T>
 cudaError_t launch_stream(const void* gates, const float* w_hh_t, const uint8_t* mask, const float* peep,
-                          void* out, int B, int T_len, int D, int H, int reverse0, cudaStream_t stream) {
+                          void* out, Saved sv, int B, int T_len, int D, int H, int reverse0,
+                          cudaStream_t stream) {
   const dim3 grid((B + ROWS - 1) / ROWS, D);
   const int threads = (H + 31) / 32 * 32;
   const size_t smem = 2 * (size_t)H * sizeof(float4);
   if (peep != nullptr) {
     lstm_stream_kernel<T, true><<<grid, threads, smem, stream>>>(
-        static_cast<const T*>(gates), w_hh_t, mask, peep, static_cast<T*>(out), B, T_len, D, H, reverse0);
+        static_cast<const T*>(gates), w_hh_t, mask, peep, static_cast<T*>(out), sv, B, T_len, D, H, reverse0);
   } else {
     lstm_stream_kernel<T, false><<<grid, threads, smem, stream>>>(
-        static_cast<const T*>(gates), w_hh_t, mask, peep, static_cast<T*>(out), B, T_len, D, H, reverse0);
+        static_cast<const T*>(gates), w_hh_t, mask, peep, static_cast<T*>(out), sv, B, T_len, D, H, reverse0);
   }
   return cudaGetLastError();
+}
+
+// ----------------------------------------------------------------- backward
+
+// The recurrence's gradient (the training path), in the stream design's
+// shape: one block per (tile of ROWS rows, direction), both directions in
+// one launch, each walking its steps in the reverse of its forward order.
+// From the upstream gradient of the output (dout), the activated gates, the
+// cell carry after every step (what the saving forward keeps) and w_hh in
+// its torch layout (D, 4H, H), per valid step of row b:
+//   dh = dout[t] + dh_carry;  tc = tanh(c_t)
+//   dpre_o = dh * tc * o(1-o)
+//   dc = dc_carry + dh * o * (1 - tc^2)            (+ dpre_o * w_op, peephole)
+//   dpre_i = dc * g * i(1-i);  dpre_g = dc * i * (1 - g^2)
+//   dpre_f = dc * c_{t-1} * f(1-f)
+//   dc_carry = dc * f                              (+ dpre_i * w_ip + dpre_f * w_fp)
+//   dgates[t] = (dpre_i, dpre_f, dpre_g, dpre_o);  dh_carry = dgates[t] @ w_hh
+// A masked step passes dh_carry and dc_carry on unchanged and has dgates 0.
+// c_{t-1} is the carry of the step before in the forward order (0 at the
+// first). Thread (k, slice) of the block: slice 0 owns hidden unit k's cell
+// (its dgates, its dh and dc carries in registers); the S slices split the
+// 4H-long sum of dh_carry = dgates @ w_hh, each over 4H/S gate rows of w_hh,
+// read from L2 (coalesced along k) every step; their partial sums meet in
+// shared memory. Two barriers a step: dgates written, partials written.
+// dgates out: (B, T, D, 4H) fp32, the gradient of the gate pre-activations
+// (of gates_x, and of the recurrent product).
+template <bool PEEP>
+__global__ void __launch_bounds__(1024) lstm_backward_kernel(
+    const float* __restrict__ dout, const float* __restrict__ gates, const float* __restrict__ cs,
+    const float* __restrict__ w_hh, const uint8_t* __restrict__ mask, const float* __restrict__ peep,
+    float* __restrict__ dgates, int B, int T_len, int D, int H, int HP, int S, int reverse0) {
+  extern __shared__ float4 bwd_smem[];
+  float4* dg_s = bwd_smem;                     // [4H]: dgates of the tile's ROWS rows
+  float4* part_s = bwd_smem + 4 * (size_t)H;   // [S][HP]: partial sums of dh_carry
+  const int d = blockIdx.y;
+  const int row0 = blockIdx.x * ROWS;
+  const int k = threadIdx.x % HP;
+  const int slice = threadIdx.x / HP;
+  const bool owner = slice == 0 && k < H;
+  const bool reverse = (d == 1) != (reverse0 != 0);
+  const int G = 4 * H;
+  const float* w = w_hh + (size_t)d * G * H;
+  const int j0 = slice * G / S, j1 = (slice + 1) * G / S;
+
+  float dh[ROWS], dc[ROWS];
+  bool live[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    dh[r] = 0.f;
+    dc[r] = 0.f;
+  }
+  float pw[3] = {0.f, 0.f, 0.f};
+  if constexpr (PEEP) {
+    if (owner) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) pw[q] = peep[((size_t)d * 3 + q) * H + k];
+    }
+  }
+
+  for (int sf = T_len - 1; sf >= 0; --sf) {  // the forward's step index, walked back
+    const int t = reverse ? T_len - 1 - sf : sf;
+    const int tp = reverse ? t + 1 : t - 1;  // the step before, in the forward's order
+    if (owner) {
+      float dg[4][ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const int b = row0 + r;
+        live[r] = b < B && mask[(size_t)b * T_len + t] != 0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) dg[q][r] = 0.f;
+        if (live[r]) {
+          const size_t o = ((size_t)b * T_len + t) * D + d;
+          const float* g = gates + o * G + k;
+          const float ig = g[0], fg = g[H], gg = g[2 * H], og = g[3 * H];
+          const float c_t = cs[o * H + k];
+          const float c_prev = sf > 0 ? cs[(((size_t)b * T_len + tp) * D + d) * H + k] : 0.f;
+          const float tc = tanhf(c_t);
+          const float dht = dout[o * H + k] + dh[r];
+          const float dpo = dht * tc * og * (1.f - og);
+          float dct = dc[r] + dht * og * (1.f - tc * tc);
+          if constexpr (PEEP) dct += dpo * pw[2];
+          const float dpi = dct * gg * ig * (1.f - ig);
+          const float dpg = dct * ig * (1.f - gg * gg);
+          const float dpf = dct * c_prev * fg * (1.f - fg);
+          float dcp = dct * fg;
+          if constexpr (PEEP) dcp += dpi * pw[0] + dpf * pw[1];
+          dc[r] = dcp;
+          dg[0][r] = dpi;
+          dg[1][r] = dpf;
+          dg[2][r] = dpg;
+          dg[3][r] = dpo;
+        }
+        if (b < B) {
+          float* out = dgates + (((size_t)b * T_len + t) * D + d) * G + k;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) out[q * H] = dg[q][r];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dg_s[q * H + k] = make_float4(dg[q][0], dg[q][1], dg[q][2], dg[q][3]);
+    }
+    __syncthreads();
+    if (k < H) {
+      float acc[ROWS] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+      for (int j = j0; j < j1; ++j) {
+        const float wj = __ldg(w + (size_t)j * H + k);
+        const float4 g4 = dg_s[j];
+        acc[0] = fmaf(g4.x, wj, acc[0]);
+        acc[1] = fmaf(g4.y, wj, acc[1]);
+        acc[2] = fmaf(g4.z, wj, acc[2]);
+        acc[3] = fmaf(g4.w, wj, acc[3]);
+      }
+      part_s[(size_t)slice * HP + k] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    }
+    __syncthreads();
+    if (owner) {
+      float4 tot = part_s[k];
+      for (int sl = 1; sl < S; ++sl) {
+        const float4 p = part_s[(size_t)sl * HP + k];
+        tot.x += p.x;
+        tot.y += p.y;
+        tot.z += p.z;
+        tot.w += p.w;
+      }
+      const float sum[ROWS] = {tot.x, tot.y, tot.z, tot.w};
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        if (live[r]) dh[r] = sum[r];
+      }
+    }
+    // the owners read dg_s and part_s of this step before the first barrier
+    // of the next, and nothing writes them before it
+  }
+}
+
+// threads of the backward block: S slices of the hidden units rounded up to
+// a warp, S the most (up to 8) that fit 1024 threads
+void backward_shape(int H, int* HP, int* S) {
+  *HP = (H + 31) / 32 * 32;
+  *S = 1024 / *HP;
+  if (*S > 8) *S = 8;
 }
 
 bool valid_shape(int B, int T_len, int D, int H) {
@@ -556,8 +749,13 @@ bool valid_shape(int B, int T_len, int D, int H) {
 // C is 1..16 CTAs per cluster, R a multiple of 4 rows per tile. A cluster
 // shape the card cannot hold (cudaOccupancyMaxActiveClusters = 0) is an error.
 // peep is the (D, 3, H) fp32 peephole weights, or null (both designs).
+// save_gates, save_c, save_h: the training forward's buffers, fp32 (B, T, D,
+// 4H), (B, T, D, H), (B, T, D, H): the activated gates i, f, g, o of every
+// step, the cell carry after it and the h carry before it; all null for
+// inference (both designs).
 extern "C" int lstm_recurrence_cluster(const void* gates, const void* w_hh, const void* mask,
-                                       const void* peep, void* out, int B, int T_len, int D, int H,
+                                       const void* peep, void* out, void* save_gates, void* save_c,
+                                       void* save_h, int B, int T_len, int D, int H,
                                        int C, int R, int reverse0, int dtype, int w_dtype, int device,
                                        void* stream) {
   if (!valid_shape(B, T_len, D, H) || C < 1 || C > 16 || R < 4 || R % 4 || w_dtype < 0 || w_dtype > 2) {
@@ -569,10 +767,11 @@ extern "C" int lstm_recurrence_cluster(const void* gates, const void* w_hh, cons
   const float* p = static_cast<const float*>(peep);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int clusters = 0;
+  const Saved sv{static_cast<float*>(save_gates), static_cast<float*>(save_c), static_cast<float*>(save_h)};
   switch (dtype) {
-    case 0: err = launch_cluster<float>(gates, w_hh, w_dtype, m, p, out, B, T_len, D, H, C, R, reverse0, s, &clusters); break;
-    case 1: err = launch_cluster<__nv_bfloat16>(gates, w_hh, w_dtype, m, p, out, B, T_len, D, H, C, R, reverse0, s, &clusters); break;
-    case 2: err = launch_cluster<__half>(gates, w_hh, w_dtype, m, p, out, B, T_len, D, H, C, R, reverse0, s, &clusters); break;
+    case 0: err = launch_cluster<float>(gates, w_hh, w_dtype, m, p, out, sv, B, T_len, D, H, C, R, reverse0, s, &clusters); break;
+    case 1: err = launch_cluster<__nv_bfloat16>(gates, w_hh, w_dtype, m, p, out, sv, B, T_len, D, H, C, R, reverse0, s, &clusters); break;
+    case 2: err = launch_cluster<__half>(gates, w_hh, w_dtype, m, p, out, sv, B, T_len, D, H, C, R, reverse0, s, &clusters); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
@@ -590,13 +789,15 @@ extern "C" int lstm_cluster_occupancy(int H, int C, int R, int device, int* smem
   *smem_bytes = (int)s.smem;
   *threads = s.threads;
   // a query (no gates) of the kernel that would launch, one tile of one direction
-  err = launch_cluster<float>(nullptr, nullptr, 0, nullptr, nullptr, nullptr, R, 1, 1, H, C, R, 0, 0, max_clusters);
+  err = launch_cluster<float>(nullptr, nullptr, 0, nullptr, nullptr, nullptr, Saved{nullptr, nullptr, nullptr},
+                              R, 1, 1, H, C, R, 0, 0, max_clusters);
   return (int)(err == cudaErrorLaunchOutOfResources ? cudaSuccess : err);
 }
 
 // The stream design: w_hh_t is the transposed fp32 weight (D, H, 4H), H <= 1024.
 extern "C" int lstm_recurrence_stream(const void* gates, const void* w_hh_t, const void* mask,
-                                      const void* peep, void* out, int B, int T_len, int D, int H,
+                                      const void* peep, void* out, void* save_gates, void* save_c,
+                                      void* save_h, int B, int T_len, int D, int H,
                                       int reverse0, int dtype, int device, void* stream) {
   if (!valid_shape(B, T_len, D, H) || H > 1024) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -605,10 +806,50 @@ extern "C" int lstm_recurrence_stream(const void* gates, const void* w_hh_t, con
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   const float* p = static_cast<const float*>(peep);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Saved sv{static_cast<float*>(save_gates), static_cast<float*>(save_c), static_cast<float*>(save_h)};
   switch (dtype) {
-    case 0: return (int)launch_stream<float>(gates, w, m, p, out, B, T_len, D, H, reverse0, s);
-    case 1: return (int)launch_stream<__nv_bfloat16>(gates, w, m, p, out, B, T_len, D, H, reverse0, s);
-    case 2: return (int)launch_stream<__half>(gates, w, m, p, out, B, T_len, D, H, reverse0, s);
+    case 0: return (int)launch_stream<float>(gates, w, m, p, out, sv, B, T_len, D, H, reverse0, s);
+    case 1: return (int)launch_stream<__nv_bfloat16>(gates, w, m, p, out, sv, B, T_len, D, H, reverse0, s);
+    case 2: return (int)launch_stream<__half>(gates, w, m, p, out, sv, B, T_len, D, H, reverse0, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The recurrence's gradient (lstm_backward_kernel), both directions in one
+// launch: dout (B, T, D, H), gates (B, T, D, 4H) and cs (B, T, D, H) as the
+// saving forward wrote them, w_hh the fp32 torch weight (D, 4H, H), mask
+// (B, T) bool, peep (D, 3, H) fp32 or null, dgates (B, T, D, 4H) out; all
+// fp32 and contiguous, H <= 1024.
+extern "C" int lstm_recurrence_backward(const void* dout, const void* gates, const void* cs,
+                                        const void* w_hh, const void* mask, const void* peep,
+                                        void* dgates, int B, int T_len, int D, int H, int reverse0,
+                                        int device, void* stream) {
+  if (!valid_shape(B, T_len, D, H) || H > 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  int HP, S;
+  backward_shape(H, &HP, &S);
+  const dim3 grid((B + ROWS - 1) / ROWS, D);
+  const size_t smem = (4 * (size_t)H + (size_t)S * HP) * sizeof(float4);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* dout_ = static_cast<const float*>(dout);
+  const float* gates_ = static_cast<const float*>(gates);
+  const float* cs_ = static_cast<const float*>(cs);
+  const float* w_ = static_cast<const float*>(w_hh);
+  const uint8_t* m_ = static_cast<const uint8_t*>(mask);
+  const float* p_ = static_cast<const float*>(peep);
+  float* dg_ = static_cast<float*>(dgates);
+  if (peep != nullptr) {
+    err = cudaFuncSetAttribute(lstm_backward_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    lstm_backward_kernel<true><<<grid, S * HP, smem, s>>>(dout_, gates_, cs_, w_, m_, p_, dg_, B, T_len, D,
+                                                          H, HP, S, reverse0);
+  } else {
+    err = cudaFuncSetAttribute(lstm_backward_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    lstm_backward_kernel<false><<<grid, S * HP, smem, s>>>(dout_, gates_, cs_, w_, m_, p_, dg_, B, T_len, D,
+                                                           H, HP, S, reverse0);
+  }
+  err = cudaGetLastError();
+  return (int)err;
 }

@@ -7,19 +7,21 @@ the counterpart of the JAX package's ``ketos``:
 
     python -m kraken_tpu_torch.ketos [-d cpu] <command> ...
 
-The commands that run a model (``test``, ``segtest``) run on the card:
-``--device`` defaults to ``cuda`` and such a run without a card stops with
-a usage error unless it asks for ``--device cpu``.
-The commands that train nothing are here: ``convert`` (checkpoints and
-weights to a weights file), ``roadd`` (a reading-order model into a
-segmentation model's file), ``compile`` (an Arrow dataset; needs
-``pyarrow``, and ``lxml`` for XML input), ``test`` (a recognition model's
-accuracy report; ``-f binary`` needs ``pyarrow``, ``-f xml`` ``lxml``) and
-``segtest`` (a segmentation model's metrics; needs ``lxml``). ``train``,
-``segtrain`` and ``rotrain`` (ROADMAP.md queue 1 item 9b) and
-``pretrain`` (item 11) are usage errors until their items land;
-``publish`` talks to the model repository over the network and is not
-ported, by decision.
+The commands that run a model (``train``, ``segtrain``, ``rotrain``,
+``test``, ``segtest``) run on the card: ``--device`` defaults to ``cuda``
+and such a run without a card stops with a usage error unless it asks for
+``--device cpu``. ``train`` (a recognition model; ``-f path`` line images
+with ``.gt.txt``, ``-f xml`` pages (``lxml``), ``-f binary`` Arrow files
+(``pyarrow``)), ``segtrain`` (a baseline segmentation model, XML pages) and
+``rotrain`` (a neural reading-order model, XML pages) train in float32 and
+write checkpoints; ``convert`` (checkpoints and weights to a weights file),
+``roadd`` (a reading-order model into a segmentation model's file),
+``compile`` (an Arrow dataset; needs ``pyarrow``, and ``lxml`` for XML
+input), ``test`` (a recognition model's accuracy report; ``-f binary``
+needs ``pyarrow``, ``-f xml`` ``lxml``) and ``segtest`` (a segmentation
+model's metrics; needs ``lxml``). ``pretrain`` (ROADMAP.md queue 1 item 11)
+is a usage error until its item lands; ``publish`` talks to the model
+repository over the network and is not ported, by decision.
 """
 import logging
 import warnings
@@ -90,13 +92,15 @@ def _not_yet(name: str, item: str):
 
 from kraken_tpu_torch.ketos import dataset, recognition, ro, segmentation, weights  # noqa: E402
 
+cli.add_command(recognition.train)
 cli.add_command(recognition.test)
+cli.add_command(segmentation.segtrain)
 cli.add_command(segmentation.segtest)
+cli.add_command(ro.rotrain)
 cli.add_command(ro.roadd)
 cli.add_command(dataset.compile)
 cli.add_command(weights.convert)
-for _name, _item in (('train', '9b'), ('segtrain', '9b'), ('rotrain', '9b'), ('pretrain', '11')):
-    cli.add_command(_not_yet(_name, _item))
+cli.add_command(_not_yet('pretrain', '11'))
 
 
 if __name__ == '__main__':

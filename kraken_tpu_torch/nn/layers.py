@@ -19,6 +19,13 @@ torch state-dict keys (``co.weight``, ``lin.bias``,
 reference's init (uniform(-0.1, 0.1) convolutions, Xavier linear,
 orthogonal LSTM with a forget-gate bias of 1, zero peepholes, unit
 LayerNorms) drawn from an explicit ``torch.Generator``.
+
+Parameters are made with ``requires_grad=False``: inference keeps them so,
+and training (:mod:`kraken_tpu_torch.train`) turns them on. With them on,
+the LSTM recurrence and GroupNorm run as autograd functions whose backward
+is a hand-written kernel on the card (``ops/lstm.py:LSTMRecurrence``,
+``ops/groupnorm.py:GroupNormFunction``) and torch autograd through the
+plain versions on the CPU.
 """
 import math
 from typing import Optional
@@ -154,20 +161,34 @@ class Reshape(Layer):
         return tuple(out.shape)
 
 
+def _dropout(x: torch.Tensor, p: float, mask_shape, generator: Optional[torch.Generator]):
+    """x with elements kept with probability 1 - p (a mask of
+    `mask_shape`, broadcast over x, drawn from `generator`) and scaled by
+    1 / (1 - p), as the JAX package's dropout."""
+    keep = torch.rand(mask_shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class Dropout(Layer):
-    """1D (per-element) or 2D (per-channel) dropout; identity in eval mode."""
+    """
+    1D (per-element) or 2D (per-channel) dropout; identity in eval mode.
+    In training the mask is one draw of (N, C, 1, 1) for dim 2 and of x's
+    whole shape otherwise (the JAX package's shapes) from ``generator``, a
+    ``torch.Generator`` on the layer's device that the trainer sets (torch's
+    default generator when None).
+    """
 
     def __init__(self, p: float, dim: int):
         super().__init__()
         self.p = p
         self.dim = dim
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x, seq_len=None, output_shape=None):
         if not self.training or self.p <= 0:
             return x, seq_len
-        if self.dim == 2:
-            return F.dropout2d(x, self.p, True), seq_len
-        return F.dropout(x, self.p, True), seq_len
+        shape = x.shape[:2] + (1, 1) if self.dim == 2 else x.shape
+        return _dropout(x, self.p, shape, self.generator), seq_len
 
 
 class GroupNorm(Layer):
@@ -452,7 +473,9 @@ class TransformerEncoder(Layer):
     rotating interleaved pairs (``x[..., 0::2]``, ``x[..., 1::2]``) by
     ``pos · 10000^(-2k/d)`` in float32; scores ``q @ kᵀ`` in float32 over
     ``sqrt(hd)``, then softmax; the tanh approximation of GELU
-    (``jax.nn.gelu``'s default). Dropout acts only in training.
+    (``jax.nn.gelu``'s default). Dropout acts only in training, on the
+    attention weights and the FFN's hidden layer, its masks drawn from
+    ``generator`` as :class:`Dropout` draws them.
     """
 
     def __init__(self, input_size: int, heads: int, dim: int, ffn_dim: int,
@@ -480,6 +503,8 @@ class TransformerEncoder(Layer):
         self.ffn = nn.Module()
         self.ffn.lin1 = _Params(weight=_xavier_uniform((F_, D), generator), bias=torch.zeros(F_))
         self.ffn.lin2 = _Params(weight=_xavier_uniform((D, F_), generator), bias=torch.zeros(D))
+        # the source of the training dropout masks (see Dropout)
+        self.generator: Optional[torch.Generator] = None
 
     @property
     def output_size(self) -> int:
@@ -526,13 +551,13 @@ class TransformerEncoder(Layer):
             scores = scores + mask
         attn = torch.softmax(scores, dim=-1).to(x.dtype)
         if self.training and self.dropout > 0:
-            attn = F.dropout(attn, self.dropout, True)
+            attn = _dropout(attn, self.dropout, attn.shape, self.generator)
         ctx = (attn @ v).transpose(1, 2).reshape(B, W, D)
         x = x + self._linear(ctx, self.attn.out)
         y = self._layernorm(x, self.norm2)
         y = F.gelu(self._linear(y, self.ffn.lin1), approximate='tanh')
         if self.training and self.dropout > 0:
-            y = F.dropout(y, self.dropout, True)
+            y = _dropout(y, self.dropout, y.shape, self.generator)
         return x + self._linear(y, self.ffn.lin2)
 
     def forward(self, x, seq_len=None, output_shape=None):

@@ -24,6 +24,15 @@ the shipped segmentation model); ``stream`` (two launches: the partial
 statistics, then their merge and the normalisation) reads x twice, for
 groups a cluster cannot hold. A refused launch raises; neither design stands
 in for the other.
+
+Training: where grad mode is on and `x`, `weight` or `bias` require a
+gradient, :func:`group_norm` on a CUDA tensor runs
+:class:`GroupNormFunction`: either design also writes each (sample,
+group)'s mean and rstd, and the two backward launches of
+``csrc/groupnorm.cu`` give dx (zero at the pad columns) and the per-(sample,
+channel) sums of the affine's gradients (counter
+``group_norm.backward_launches``, 2 a call), float32 only. On a CPU tensor
+the plain version's torch autograd is the gradient.
 """
 import ctypes
 import functools
@@ -33,7 +42,8 @@ import torch
 
 from kraken_tpu_torch.ops.build import DTYPE_CODES, raw_stream
 
-__all__ = ['group_norm', 'group_norm_reference', 'blocks_per_group', 'cluster_occupancy']
+__all__ = ['GroupNormFunction', 'group_norm', 'group_norm_reference', 'blocks_per_group',
+           'cluster_occupancy']
 
 # the kernel's launch aims at about this many blocks (8 per SM of an H100)
 _TARGET_BLOCKS = 8 * 132
@@ -144,13 +154,16 @@ def _lib():
     (built at first use)."""
     from kraken_tpu_torch.ops.build import load_library
     lib = load_library('groupnorm')
-    lib.groupnorm_forward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+    lib.groupnorm_forward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
         + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    lib.groupnorm_cluster.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+    lib.groupnorm_cluster.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
         + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.groupnorm_cluster_occupancy.argtypes = [ctypes.c_int] * 7 \
         + [ctypes.POINTER(ctypes.c_int)] * 3
-    for fn in (lib.groupnorm_forward, lib.groupnorm_cluster, lib.groupnorm_cluster_occupancy):
+    lib.groupnorm_backward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
+    for fn in (lib.groupnorm_forward, lib.groupnorm_cluster, lib.groupnorm_cluster_occupancy,
+               lib.groupnorm_backward):
         fn.restype = ctypes.c_int
     return lib
 
@@ -176,10 +189,13 @@ def cluster_occupancy(C: int, H: int, W: int, G: int, CL: int, dtype: torch.dtyp
 
 
 def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int,
-            eps: float, seq_len: Optional[torch.Tensor], design: tuple) -> torch.Tensor:
+            eps: float, seq_len: Optional[torch.Tensor], design: tuple,
+            stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launches ``design`` of ``csrc/groupnorm.cu`` on checked CUDA tensors
     and counts its launches; raises if the card cannot hold the cluster
-    design's shape or a launch is refused."""
+    design's shape or a launch is refused. `stats`, an (N, G, 2) float32
+    buffer, makes the kernel write each group's (mean, rstd) for the
+    backward."""
     N, C, H, W = x.shape
     G = num_groups
     y = torch.empty_like(x)
@@ -189,20 +205,21 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_group
     lens = seq_len.data_ptr() if seq_len is not None else None
     w32 = weight.to(torch.float32).contiguous()  # no copy when already fp32
     b32 = bias.to(torch.float32).contiguous()
+    stats_ptr = None if stats is None else stats.data_ptr()
     if design[0] == 'cluster':
         CL = design[1]
         if cluster_occupancy(C, H, W, G, CL, x.dtype, dev)[2] == 0:
             raise RuntimeError(f'group_norm: the card cannot hold a cluster of {CL} CTAs for '
                                f'groups of {(N, C, H, W)} / {G} in {x.dtype}')
         err = _lib().groupnorm_cluster(x.data_ptr(), lens, w32.data_ptr(), b32.data_ptr(),
-                                       y.data_ptr(), N, C, H, W, G, CL, float(eps),
+                                       y.data_ptr(), stats_ptr, N, C, H, W, G, CL, float(eps),
                                        DTYPE_CODES[x.dtype], dev, raw_stream(dev))
         launches = 1
     else:
         S = blocks_per_group(N * G, (C // G) * H)
         partial = torch.empty((N * G * S * 3,), dtype=torch.float32, device=x.device)
         err = _lib().groupnorm_forward(x.data_ptr(), lens, partial.data_ptr(), w32.data_ptr(),
-                                       b32.data_ptr(), y.data_ptr(), N, C, H, W, G, S,
+                                       b32.data_ptr(), y.data_ptr(), stats_ptr, N, C, H, W, G, S,
                                        float(eps), DTYPE_CODES[x.dtype], dev, raw_stream(dev))
         launches = 2  # statistics, then merge + normalise
     if err != 0:
@@ -210,6 +227,58 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_group
     group_norm.launches += launches
     group_norm.design_launches[design[0]] += launches
     return y
+
+
+def _launch_backward(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor, num_groups: int,
+                     seq_len: Optional[torch.Tensor], stats: torch.Tensor) -> tuple:
+    """Launches the two backward kernels of ``csrc/groupnorm.cu`` on
+    float32 CUDA tensors and counts them: (dx, d weight, d bias), the
+    affine's gradients summed over the samples with torch."""
+    N, C, H, W = x.shape
+    G = num_groups
+    dx = torch.empty_like(x)
+    S1 = blocks_per_group(N * C, H)
+    S2 = blocks_per_group(N * G, (C // G) * H)
+    partial = torch.empty((N, C, S1, 2), dtype=torch.float32, device=x.device)
+    dev = x.device.index
+    w32 = weight.to(torch.float32).contiguous()
+    err = _lib().groupnorm_backward(x.data_ptr(), dy.data_ptr(),
+                                    None if seq_len is None else seq_len.data_ptr(),
+                                    stats.data_ptr(), w32.data_ptr(), partial.data_ptr(),
+                                    dx.data_ptr(), N, C, H, W, G, S1, S2, dev, raw_stream(dev))
+    if err != 0:
+        raise RuntimeError(f'group_norm backward kernel launch failed: cudaError {err}')
+    group_norm.backward_launches += 2
+    sums = partial.sum(dim=(0, 2))
+    return dx, sums[:, 0], sums[:, 1]
+
+
+class GroupNormFunction(torch.autograd.Function):
+    """
+    :func:`group_norm` with a gradient, on float32 CUDA tensors: the
+    forward kernel also writes each (sample, group)'s mean and rstd, the
+    backward kernels of ``csrc/groupnorm.cu`` give dx over the valid
+    columns (zero at the pad columns, which the forward zeroes) and the
+    per-(sample, channel) sums of the affine's gradients, which torch sums
+    over the samples.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, num_groups, eps, seq_len):
+        N, C, H, W = x.shape
+        stats = torch.empty((N, num_groups, 2), dtype=torch.float32, device=x.device)
+        y = _launch(x, weight, bias, num_groups, eps, seq_len,
+                    _design(N, C, H, W, num_groups, x.dtype), stats)
+        ctx.num_groups = num_groups
+        ctx.save_for_backward(x, weight, seq_len, stats)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, seq_len, stats = ctx.saved_tensors
+        dx, d_weight, d_bias = _launch_backward(x, dy.contiguous(), weight, ctx.num_groups,
+                                                seq_len, stats)
+        return dx, d_weight.to(weight.dtype), d_bias.to(weight.dtype), None, None, None
 
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -252,9 +321,16 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         if tuple(seq_len.shape) != (N,):
             raise ValueError(f'seq_len must be ({N},), got {tuple(seq_len.shape)}')
         seq_len = seq_len.to(torch.int32).contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        if x.dtype != torch.float32 or weight.dtype != torch.float32:
+            raise TypeError('the GroupNorm gradient is float32 only: training runs in float32 '
+                            'whatever the precision')
+        return GroupNormFunction.apply(x, weight, bias, num_groups, eps, seq_len)
     return _launch(x, weight, bias, num_groups, eps, seq_len,
                    _design(N, C, H, W, num_groups, x.dtype))
 
 
 group_norm.launches = 0
 group_norm.design_launches = {'cluster': 0, 'stream': 0}
+group_norm.backward_launches = 0

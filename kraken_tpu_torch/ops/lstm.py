@@ -41,6 +41,16 @@ the JAX package's ``nn/layers.py:_peephole_scan``:
 template flag of the same source. The JAX scan carries ``h``/``c`` in the
 input's type; here the carry stays float32, so the two are the same
 function in fp32 and the port is the more precise one in bf16.
+
+Training: where grad mode is on and ``gates_x``, ``w_hh`` or the peephole
+weights require a gradient, :func:`lstm_recurrence` on a CUDA tensor runs
+:class:`LSTMRecurrence`: the forward kernel in its saving mode and the
+backward kernel of ``csrc/lstm.cu`` (counter
+``lstm_recurrence.backward_launches``, with the peephole flag also
+``lstm_recurrence.backward_peephole_launches``), float32 only. On a CPU
+tensor the plain version's torch autograd is the gradient; the backward
+kernel is held to it on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py`` phase 22).
 """
 import ctypes
 import functools
@@ -50,7 +60,7 @@ import torch
 
 from kraken_tpu_torch.ops.build import DTYPE_CODES
 
-__all__ = ['lstm_recurrence', 'lstm_recurrence_reference']
+__all__ = ['LSTMRecurrence', 'lstm_recurrence', 'lstm_recurrence_reference']
 
 
 def _shapes(gates_x: torch.Tensor, w_hh: torch.Tensor, mask: torch.Tensor,
@@ -197,14 +207,18 @@ def cluster_occupancy(H: int, C: int, R: int, device: int = 0) -> tuple[int, int
 
 
 def _launch(gates_x: torch.Tensor, w_hh: torch.Tensor, mask: torch.Tensor,
-            reverse: bool, design: tuple, peephole: Optional[torch.Tensor] = None) -> torch.Tensor:
+            reverse: bool, design: tuple, peephole: Optional[torch.Tensor] = None,
+            saved: Optional[tuple] = None) -> torch.Tensor:
     """Launches ``design`` of ``csrc/lstm.cu`` on checked CUDA tensors and
     counts the launch; raises if the launch is refused. The peephole
-    weights go to the kernel as a float32 (D, 3, H) copy."""
+    weights go to the kernel as a float32 (D, 3, H) copy. `saved`, the
+    training forward's (gates, c, h) float32 buffers, makes the kernel
+    write them."""
     B, T, D, H = _shapes(gates_x, w_hh, mask, peephole)
     out = torch.empty((B, T, D, H), dtype=gates_x.dtype, device=gates_x.device)
     if B == 0 or T == 0:
         return out
+    save_ptrs = [None] * 3 if saved is None else [t.data_ptr() for t in saved]
     from kraken_tpu_torch.ops.build import load_library
     lib = load_library('lstm')
     stream = torch.cuda.current_stream(gates_x.device).cuda_stream
@@ -214,20 +228,20 @@ def _launch(gates_x: torch.Tensor, w_hh: torch.Tensor, mask: torch.Tensor,
     if design[0] == 'cluster':
         _, C, R = design
         fn = lib.lstm_recurrence_cluster
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = fn(gates_x.data_ptr(), w_hh.data_ptr(), mask.data_ptr(), peep_ptr, out.data_ptr(),
-                 B, T, D, H, C, R, int(bool(reverse)), DTYPE_CODES[gates_x.dtype],
+                 *save_ptrs, B, T, D, H, C, R, int(bool(reverse)), DTYPE_CODES[gates_x.dtype],
                  DTYPE_CODES[w_hh.dtype], dev, stream)
     else:
         # the stream design reads w_hh transposed and in fp32
         w_hh_t = w_hh.to(torch.float32).transpose(1, 2).contiguous()
         fn = lib.lstm_recurrence_stream
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = fn(gates_x.data_ptr(), w_hh_t.data_ptr(), mask.data_ptr(), peep_ptr,
-                 out.data_ptr(), B, T, D, H, int(bool(reverse)), DTYPE_CODES[gates_x.dtype], dev,
-                 stream)
+                 out.data_ptr(), *save_ptrs, B, T, D, H, int(bool(reverse)),
+                 DTYPE_CODES[gates_x.dtype], dev, stream)
     if err != 0:
         raise RuntimeError(f'lstm_recurrence {design[0]} kernel launch failed: cudaError {err}')
     lstm_recurrence.launches += 1
@@ -235,6 +249,88 @@ def _launch(gates_x: torch.Tensor, w_hh: torch.Tensor, mask: torch.Tensor,
     if peep is not None:
         lstm_recurrence.peephole_launches += 1
     return out
+
+
+def _launch_backward(dout: torch.Tensor, gates: torch.Tensor, cs: torch.Tensor,
+                     w_hh: torch.Tensor, mask: torch.Tensor, reverse: bool,
+                     peephole: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launches the backward kernel of ``csrc/lstm.cu`` on the saving
+    forward's buffers and counts the launch: (B, T, D, 4H) float32, the
+    gradient of the gate pre-activations."""
+    B, T, D, G = gates.shape
+    H = G // 4
+    dgates = torch.empty_like(gates)
+    if B == 0 or T == 0:
+        return dgates.zero_()
+    from kraken_tpu_torch.ops.build import load_library
+    fn = load_library('lstm').lstm_recurrence_backward
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dev = gates.device.index
+    w32 = w_hh.to(torch.float32).contiguous()
+    peep = None if peephole is None else peephole.to(torch.float32).contiguous()
+    err = fn(dout.data_ptr(), gates.data_ptr(), cs.data_ptr(), w32.data_ptr(), mask.data_ptr(),
+             None if peep is None else peep.data_ptr(), dgates.data_ptr(), B, T, D, H,
+             int(bool(reverse)), dev, torch.cuda.current_stream(gates.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'lstm_recurrence backward kernel launch failed: cudaError {err}')
+    lstm_recurrence.backward_launches += 1
+    if peep is not None:
+        lstm_recurrence.backward_peephole_launches += 1
+    return dgates
+
+
+def _shift_carry(cs: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """The cell carry before each step from the carry after it (B, T, D,
+    H): the carry of the step before in each direction's order, 0 at its
+    first step."""
+    D = cs.shape[2]
+    before = torch.zeros_like(cs)
+    for d in range(D):
+        if (d == 1) != reverse:
+            before[:, :-1, d] = cs[:, 1:, d]
+        else:
+            before[:, 1:, d] = cs[:, :-1, d]
+    return before
+
+
+class LSTMRecurrence(torch.autograd.Function):
+    """
+    :func:`lstm_recurrence` with a gradient, on CUDA tensors: the forward
+    kernel in its saving mode (the activated gates, the cell carry after
+    and the h carry before every step, float32), the backward kernel of
+    ``csrc/lstm.cu`` for the gate gradients. What sums over all steps at
+    once stays in torch: ``dW_hh[d] = Σ_{b,t} dgates ⊗ h_before`` and the
+    peephole weights' gradients (``Σ dpre_i·c_before``, ``Σ dpre_f·c_before``,
+    ``Σ dpre_o·c_after``). float32 only.
+    """
+
+    @staticmethod
+    def forward(ctx, gates_x, w_hh, mask, reverse, peephole):
+        B, T, D, H = _shapes(gates_x, w_hh, mask, peephole)
+        f32 = dict(dtype=torch.float32, device=gates_x.device)
+        saved = (torch.empty((B, T, D, 4 * H), **f32), torch.empty((B, T, D, H), **f32),
+                 torch.empty((B, T, D, H), **f32))
+        out = _launch(gates_x, w_hh, mask, reverse, _design(B, T, D, H), peephole, saved)
+        ctx.reverse = reverse
+        ctx.save_for_backward(w_hh, mask, peephole, *saved)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        w_hh, mask, peephole, gates, cs, hs = ctx.saved_tensors
+        dgates = _launch_backward(dout.to(torch.float32).contiguous(), gates, cs, w_hh, mask,
+                                  ctx.reverse, peephole)
+        d_w_hh = torch.einsum('btdg,btdh->dgh', dgates, hs) if ctx.needs_input_grad[1] else None
+        d_peep = None
+        if peephole is not None and ctx.needs_input_grad[4]:
+            H = cs.shape[3]
+            before = _shift_carry(cs, ctx.reverse)
+            d_peep = torch.stack([(dgates[..., :H] * before).sum(dim=(0, 1)),
+                                  (dgates[..., H:2 * H] * before).sum(dim=(0, 1)),
+                                  (dgates[..., 3 * H:] * cs).sum(dim=(0, 1))], dim=1)
+            d_peep = d_peep.to(peephole.dtype)
+        return dgates, d_w_hh, None, None, d_peep
 
 
 def lstm_recurrence(gates_x: torch.Tensor, w_hh: torch.Tensor,
@@ -257,7 +353,9 @@ def lstm_recurrence(gates_x: torch.Tensor, w_hh: torch.Tensor,
     bfloat16 or float16: the cluster design reads it as it is, converting
     to float32 while it loads it into shared memory; the stream design
     (hidden sizes above what a cluster holds) is handed a transposed
-    float32 copy (D, H, 4H), made on each call.
+    float32 copy (D, H, 4H), made on each call. With grad mode on and an
+    input that requires a gradient it runs :class:`LSTMRecurrence` (float32
+    only: another type raises a TypeError).
     """
     if gates_x.device.type == 'cpu':
         return lstm_recurrence_reference(gates_x, w_hh, mask, reverse, peephole)
@@ -278,9 +376,17 @@ def lstm_recurrence(gates_x: torch.Tensor, w_hh: torch.Tensor,
         raise TypeError(f'peephole must be float32, bfloat16 or float16, not {peephole.dtype}')
     if H > MAX_HIDDEN:
         raise ValueError(f'the kernel takes a hidden size of at most {MAX_HIDDEN}, not {H}')
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (gates_x, w_hh, peephole)):
+        if any(t is not None and t.dtype != torch.float32 for t in (gates_x, w_hh, peephole)):
+            raise TypeError('the recurrence\'s gradient is float32 only: training runs in '
+                            'float32 whatever the precision')
+        return LSTMRecurrence.apply(gates_x, w_hh, mask, bool(reverse), peephole)
     return _launch(gates_x, w_hh, mask, reverse, _design(B, T, D, H), peephole)
 
 
 lstm_recurrence.launches = 0
 lstm_recurrence.design_launches = {'cluster': 0, 'stream': 0}
 lstm_recurrence.peephole_launches = 0
+lstm_recurrence.backward_launches = 0
+lstm_recurrence.backward_peephole_launches = 0

@@ -2,13 +2,24 @@
 kraken_tpu_torch.train
 ~~~~~~~~~~~~~~~~~~~~~~
 
-The evaluation halves of the JAX package's training modules: recognition
-and segmentation data modules and models that test a loaded model
-(``ketos test``/``segtest``), and their metrics. The training loops,
-losses, optimizers and checkpoints wait for ROADMAP.md queue 1 item 9b.
+Training and evaluation, the counterparts of the JAX package's training
+modules: the losses, the optax-equal optimizers and schedules, checkpoints,
+the training loop (:class:`KrakenTrainer`) and the recognition,
+segmentation and reading-order task and data modules.
 """
+from kraken_tpu_torch.train.checkpoint import (config_from_checkpoint, convert_checkpoint,
+                                               load_checkpoint, save_checkpoint)
+from kraken_tpu_torch.train.losses import bce_logits_loss, ctc_loss, dice_loss, segmentation_loss
+from kraken_tpu_torch.train.optim import Optimizer, build_lr_schedule
 from kraken_tpu_torch.train.recognition import RecognitionDataModule, RecognitionModel
+from kraken_tpu_torch.train.ro import RODataModule, ROModel
 from kraken_tpu_torch.train.segmentation import SegmentationDataModule, SegmentationModel
+from kraken_tpu_torch.train.trainer import KrakenTrainer
 
-__all__ = ['RecognitionModel', 'RecognitionDataModule',
-           'SegmentationModel', 'SegmentationDataModule']
+__all__ = ['ctc_loss', 'bce_logits_loss', 'dice_loss', 'segmentation_loss',
+           'Optimizer', 'build_lr_schedule', 'KrakenTrainer',
+           'RecognitionModel', 'RecognitionDataModule',
+           'SegmentationModel', 'SegmentationDataModule',
+           'ROModel', 'RODataModule',
+           'save_checkpoint', 'load_checkpoint', 'convert_checkpoint',
+           'config_from_checkpoint']

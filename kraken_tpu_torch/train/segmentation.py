@@ -2,23 +2,29 @@
 kraken_tpu_torch.train.segmentation
 ~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~
 
-Baseline segmentation evaluation, the evaluation half of the JAX package's
-``train/segmentation.py``: pixel accuracy and mean IoU of the sigmoid
-heatmaps against rasterized targets, and baseline-detection P/R/F1 from
-the vectorizer run on the predicted heatmaps (``ketos segtest``).
+Baseline segmentation training and evaluation, the counterpart of the JAX
+package's ``train/segmentation.py`` (the reference's
+BLLASegmentationModel/DataModule, kraken/train/blla.py): the BCE + soft
+Dice loss on rasterized heatmap targets, the class-mapping resize with
+fail/union/new semantics, pixel accuracy and mean IoU of the sigmoid
+heatmaps, and baseline-detection P/R/F1 from the vectorizer run on the
+predicted heatmaps (``ketos segtrain``/``segtest``).
 
-On the model's device the network runs inside ``_precise_fp32`` (its
-GroupNorm layers in the GroupNorm kernel), then the sigmoid, then a
-bilinear resize to the target's size (half-pixel centres, antialiased
-where it shrinks: ``jax.image.resize(..., 'bilinear')``). The JAX code
-takes the sigmoid before the resize, the order the segmentation head
-kernel reverses, so the head kernel is not this function. The JAX
-validation vectorizes with the host Sato ridge at 0.17; here the ridge
-kernel (``ops/ridge.py:sato_ridge_threshold``) thresholds every baseline
-channel of a page at 0.17 in one launch, on the model's device.
+Training runs the network in float32 on ``config.device`` with its
+parameters trainable (on the card its GroupNorm layers run the forward and
+backward kernels of ``ops/groupnorm.py``); the loss upsamples the logits to
+the target's size with :func:`resize_bilinear`, as the JAX loss resizes
+them with ``jax.image.resize``.
 
-Training (``setup`` of any stage but 'test', the train loader) waits for
-ROADMAP.md queue 1 item 9b and raises ``NotImplementedError``.
+Evaluation runs the network inside ``_precise_fp32`` under
+``torch.inference_mode()``, then the sigmoid, then a bilinear resize to the
+target's size (half-pixel centres, antialiased where it shrinks:
+``jax.image.resize(..., 'bilinear')``). The JAX code takes the sigmoid
+before the resize, the order the segmentation head kernel reverses, so the
+head kernel is not this function. The JAX validation vectorizes with the
+host Sato ridge at 0.17; here the ridge kernel
+(``ops/ridge.py:sato_ridge_threshold``) thresholds every baseline channel
+of a page at 0.17 in one launch, on the model's device.
 """
 import logging
 from typing import Optional
@@ -31,8 +37,9 @@ from kraken_tpu_torch.containers import Segmentation
 from kraken_tpu_torch.dataset import ImageInputTransforms
 from kraken_tpu_torch.dataset.loader import DataLoader
 from kraken_tpu_torch.dataset.segmentation import BaselineSet
+from kraken_tpu_torch.train.losses import segmentation_loss
 from kraken_tpu_torch.train.metrics import MultilabelAccuracy, MultilabelJaccard
-from kraken_tpu_torch.train.recognition import TRAINING_ITEM
+from kraken_tpu_torch.train.trainer import TrainingModule
 
 logger = logging.getLogger(__name__)
 
@@ -59,10 +66,12 @@ def resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
 
 
 class SegmentationDataModule:
-    """Builds the BaselineSet test set from XML pages or Segmentations."""
+    """Builds BaselineSet train/validation sets (and the test set) from XML
+    pages or Segmentations."""
 
     def __init__(self, config):
         self.config = config
+        self.train_set = None
         self.val_set = None
         self.test_set = None
 
@@ -91,13 +100,34 @@ class SegmentationDataModule:
         return ds
 
     def setup(self, stage: Optional[str] = None):
-        """Builds the test set (`stage` 'test'); other stages train."""
-        if stage != 'test':
-            raise NotImplementedError(f'setup({stage!r}) trains: {TRAINING_ITEM}')
-        self.test_set = self._build(self.config.test_data or self.config.evaluation_data)
+        """Builds the train and validation sets (`stage` 'fit' or None) or
+        the test set ('test')."""
+        cfg = self.config
+        if stage == 'test':
+            self.test_set = self._build(cfg.test_data or cfg.evaluation_data)
+            return
+        if cfg.evaluation_data:
+            self.train_set = self._build(cfg.training_data)
+            self.val_set = self._build(cfg.evaluation_data)
+        else:
+            full = self._build(cfg.training_data)
+            n = len(full)
+            idx = np.random.RandomState(42).permutation(n)
+            cut = max(1, int(n * cfg.partition))
+            val = self._build(cfg.training_data)
+            self.train_set = _SubsetSeg(full, idx[:cut])
+            self.val_set = _SubsetSeg(val, idx[cut:] if n > 1 else idx[:1])
+        if not len(self.train_set):
+            raise ValueError('No valid training data provided.')
 
     def train_dataloader(self):
-        raise NotImplementedError(f'the training loader: {TRAINING_ITEM}')
+        batch_size = min(self.config.batch_size, max(1, len(self.train_set)))
+        if batch_size < self.config.batch_size:
+            logger.warning(f'Batch size {self.config.batch_size} exceeds training '
+                           f'set size {len(self.train_set)}; clamping.')
+        return DataLoader(self.train_set, batch_size=batch_size, shuffle=True, drop_last=True,
+                          collate_fn=_seg_collate, num_workers=self.config.num_workers,
+                          seed=int(np.random.randint(0, 2**31 - 1)))
 
     def val_dataloader(self):
         return DataLoader(self.val_set, batch_size=1, collate_fn=_seg_collate)
@@ -106,13 +136,36 @@ class SegmentationDataModule:
         return DataLoader(self.test_set, batch_size=1, collate_fn=_seg_collate)
 
 
-class SegmentationModel:
-    """Segmentation module: evaluation of a loaded model on its device
-    (``config.device``, in ``config.precision``)."""
+class _SubsetSeg:
+    """Some items of a BaselineSet, with the set's attributes."""
+
+    def __init__(self, dataset, indices):
+        self.dataset = dataset
+        self.indices = list(indices)
+
+    def __getattr__(self, name):
+        return getattr(self.dataset, name)
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, idx):
+        return self.dataset[self.indices[idx]]
+
+
+def _base(ds):
+    return ds.dataset if isinstance(ds, _SubsetSeg) else ds
+
+
+class SegmentationModel(TrainingModule):
+    """BCE + Dice segmentation module: training (in float32 on
+    ``config.device``) and evaluation of a model on its device (in
+    ``config.precision``)."""
 
     def __init__(self, config, net=None):
         self.config = config
         self.net = net
+        self.trainer = None
 
     @classmethod
     def load_from_weights(cls, config, path):
@@ -125,21 +178,65 @@ class SegmentationModel:
     def setup(self, stage, datamodule):
         """For `stage` 'test': places the loaded model on the config's
         device and gives the data module's test and validation sets the
-        network's input transforms; other stages train."""
-        if stage != 'test':
-            raise NotImplementedError(f'setup({stage!r}) trains: {TRAINING_ITEM}')
-        if self.net is None:
-            raise ValueError('Testing requires a loaded model.')
-        from kraken_tpu_torch.inference.recognition import _PRECISION_DTYPES, resolve_device
-        self._device = resolve_device(self.config.device)
-        self._dtype = _PRECISION_DTYPES.get(self.config.precision, torch.float32)
-        self.net.net.to(device=self._device, dtype=self._dtype)
-        self.net.net.eval()
+        network's input transforms. For 'fit': builds a new network from
+        ``config.spec`` with the training set's classes (or resizes a loaded
+        one's output), records the class mapping, wires the transforms and
+        places the network for training."""
+        if stage == 'test':
+            if self.net is None:
+                raise ValueError('Testing requires a loaded model.')
+            from kraken_tpu_torch.inference.recognition import _PRECISION_DTYPES, resolve_device
+            self._device = resolve_device(self.config.device)
+            self._dtype = _PRECISION_DTYPES.get(self.config.precision, torch.float32)
+            self.net.net.to(device=self._device, dtype=self._dtype)
+            self.net_eval()
+            sets = (datamodule.test_set, datamodule.val_set)
+        else:
+            cfg = self.config
+            train_set = _base(datamodule.train_set)
+            class_mapping = train_set.class_mapping
+            num_classes = train_set.num_classes
+            if self.net is None:
+                spec = cfg.spec.strip()
+                cfg.spec = f'[{spec[1:-1]} O2l{num_classes}]'
+                from kraken_tpu_torch.models import create_model
+                self.net = create_model('TorchVGSLModel', model_type=['segmentation'],
+                                        vgsl=cfg.spec)
+            else:
+                existing = self.net.user_metadata.get('class_mapping', {})
+                existing_classes = {k for d in existing.values() for k in d}
+                new_classes = {k for d in class_mapping.values() for k in d}
+                diff = new_classes - existing_classes
+                if diff:
+                    if cfg.resize == 'fail':
+                        raise ValueError(f'Training data and model class mappings mismatch: {diff}')
+                    logger.info(f'Resizing output layer for {len(diff)} new classes.')
+                    self.net.resize_output(num_classes)
+            self.net.model_type = ['segmentation']
+            self.net.seg_type = 'baselines'
+            self.net.user_metadata['class_mapping'] = class_mapping
+            self.net.user_metadata['topline'] = cfg.topline
+            self._place_for_training()
+            sets = (datamodule.train_set, datamodule.val_set)
         batch, channels, height, width = self.net.input
         transforms = ImageInputTransforms(batch, height, width, channels, 0, valid_norm=False)
-        for ds in (datamodule.test_set, datamodule.val_set):
+        for ds in sets:
             if ds is not None:
-                ds.transforms = transforms
+                _base(ds).transforms = transforms
+
+    def loss_fn(self, batch: dict) -> torch.Tensor:
+        """BCE + weighted Dice of the logits, upsampled to the target's
+        size (the JAX ``loss_fn``), through the network on its device."""
+        x = torch.from_numpy(np.ascontiguousarray(batch['image'])).to(self._device, torch.float32)
+        target = torch.from_numpy(np.ascontiguousarray(batch['target'])).to(self._device,
+                                                                           torch.float32)
+        logits, _ = self._run(self.net.net, x)
+        logits = resize_bilinear(logits, tuple(target.shape[2:]))
+        return segmentation_loss(logits, target, dice_weight=self.config.dice_weight)
+
+    def checkpoint_extras(self) -> dict:
+        return {'_seg_type': 'baselines',
+                'class_mapping': self.net.user_metadata.get('class_mapping')}
 
     def _forward(self, image: np.ndarray, size: tuple[int, int],
                  ridge_channels: tuple) -> tuple[np.ndarray, Optional[np.ndarray]]:

@@ -1063,3 +1063,132 @@ def test_segmentation_validation_on_the_card_equals_the_cpu(cuda_device):
             assert out['cuda'][k] == out['cpu'][k], k
         else:
             assert abs(out['cuda'][k] - out['cpu'][k]) <= SMOKE.KETOS_METRIC_ATOL, k
+
+
+# ------------------------------------------------------------- training
+
+def _lstm_grads(fn, gates, w_hh, mask, reverse, peephole, upstream):
+    """Gradients of (fn(...) * upstream).sum() with respect to gates_x, w_hh
+    and the peephole weights (fresh leaves of the given values)."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (gates, w_hh)]
+    peep = None if peephole is None else peephole.detach().clone().requires_grad_(True)
+    out = fn(leaves[0], leaves[1], mask, reverse, peephole=peep)
+    (out * upstream).sum().backward()
+    return out.detach(), [t.grad for t in leaves] + ([] if peep is None else [peep.grad])
+
+
+def _close(a: torch.Tensor, b: torch.Tensor, rel: float) -> bool:
+    """Within `rel` of the larger's largest magnitude (at least 1)."""
+    scale = max(1.0, a.abs().max().item(), b.abs().max().item())
+    return (a - b).abs().max().item() <= rel * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('peephole', [False, True])
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('B,T,D,H,lens', [
+    (3, 7, 1, 8, [7, 3, 1]),              # a line of one frame
+    (5, 33, 2, 25, [33, 20, 0, 1, 17]),   # an all-masked row, both directions
+    (9, 20, 2, 130, None),
+    (4, 16, 2, 200, [16, 9, 4, 2]),
+    (3, 9, 2, 512, [9, 5, 2]),            # the stream design's hidden sizes
+])
+def test_lstm_backward_matches_plain_autograd(cuda_device, B, T, D, H, lens, reverse, peephole):
+    """The saving forward and the backward kernel against torch autograd
+    through the plain recurrence on the same card tensors: the output, the
+    gradients of gates_x, w_hh and the peephole weights (fp32, 1e-5 of the
+    largest magnitude); one backward launch a call, counted."""
+    rng = np.random.RandomState(B * T + H)
+    gates = torch.from_numpy(rng.randn(B, T, D, 4 * H).astype(np.float32)).to(cuda_device)
+    w_hh = torch.from_numpy((rng.randn(D, 4 * H, H) / np.sqrt(H)).astype(np.float32)).to(cuda_device)
+    peep = (torch.from_numpy((0.3 * rng.randn(D, 3, H)).astype(np.float32)).to(cuda_device)
+            if peephole else None)
+    lens = lens or [T] * B
+    mask = (torch.arange(T)[None, :] < torch.tensor(lens)[:, None]).to(cuda_device)
+    upstream = torch.from_numpy(rng.randn(B, T, D, H).astype(np.float32)).to(cuda_device)
+    before = (lstm_recurrence.launches, lstm_recurrence.backward_launches,
+              lstm_recurrence.backward_peephole_launches)
+    out, grads = _lstm_grads(lstm_recurrence, gates, w_hh, mask, reverse, peep, upstream)
+    torch.cuda.synchronize()
+    assert (lstm_recurrence.launches, lstm_recurrence.backward_launches,
+            lstm_recurrence.backward_peephole_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + int(peephole))
+    ref_out, ref_grads = _lstm_grads(lstm_recurrence_reference, gates, w_hh, mask, reverse, peep,
+                                     upstream)
+    assert (out - ref_out).abs().max().item() <= 1e-5
+    for got, want in zip(grads, ref_grads):
+        assert got.shape == want.shape and _close(got, want, 1e-5)
+    # masked steps take no gradient
+    assert not grads[0][~mask].any()
+
+
+@pytest.mark.cuda
+def test_lstm_training_forward_refuses_bf16(cuda_device):
+    g = torch.zeros(2, 3, 1, 32, device=cuda_device, dtype=torch.bfloat16, requires_grad=True)
+    w = torch.zeros(1, 32, 8, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match='float32'):
+        lstm_recurrence(g, w, torch.ones(2, 3, dtype=torch.bool, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('forced', [None, 'stream'])
+@pytest.mark.parametrize('shape, groups, lens', [
+    ((1, 32, 256, 177), 8, None),
+    ((3, 16, 37, 61), 4, [61, 30, 1]),
+    ((2, 96, 20, 33), 16, [5, 40]),
+    ((2, 64, 30, 77), 32, [77, 50]),
+])
+def test_group_norm_backward_matches_plain_autograd(cuda_device, monkeypatch, shape, groups, lens,
+                                                    forced):
+    """The forward's statistics (either design) and the two backward
+    launches against torch autograd through the plain version in float64
+    on the same inputs: dx, d weight and d bias within 1e-5 of the largest
+    magnitude, dx zero at the pad columns."""
+    from kraken_tpu_torch.ops import groupnorm
+    if forced:
+        monkeypatch.setattr(groupnorm, '_design', lambda *a: ('stream',))
+    x, w, b = _group_norm_inputs(shape, torch.float32, cuda_device)
+    seq = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    dy = torch.from_numpy(np.random.RandomState(7).randn(*shape).astype(np.float32)).to(cuda_device)
+
+    def grads(fn, dtype):
+        leaves = [t.detach().to(dtype).requires_grad_(True) for t in (x, w, b)]
+        y = fn(*leaves, groups, 1e-5, seq)
+        (y * dy.to(dtype)).sum().backward()
+        return [t.grad for t in leaves]
+
+    before = groupnorm.group_norm.backward_launches
+    got = grads(groupnorm.group_norm, torch.float32)
+    torch.cuda.synchronize()
+    assert groupnorm.group_norm.backward_launches == before + 2
+    want = grads(groupnorm.group_norm_reference, torch.float64)
+    for g, r in zip(got, want):
+        assert _close(g.double(), r, 1e-5)
+    if lens is not None:
+        for n, L in enumerate(lens):
+            assert not got[0][n, :, :, min(L, shape[3]):].any()
+
+
+@pytest.mark.cuda
+def test_training_step_on_the_card_equals_the_cpu(cuda_device):
+    """A small recognizer's loss and gradients through both kernels' backward
+    (LSTM, GroupNorm) on the card against the same step on the CPU."""
+    from kraken_tpu_torch.train.losses import ctc_loss
+    spec = '[1,32,0,1 Cr3,3,8 Gn4 Mp2,2 S1(1x0)1,3 Lbx16 Lbxo8 O1c12]'
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.rand(4, 1, 32, 40).astype(np.float32))
+    lens = torch.tensor([40, 31, 17, 9], dtype=torch.int32)
+    target = torch.from_numpy(rng.randint(1, 12, (4, 5)).astype(np.int32))
+    tlens = torch.tensor([5, 4, 3, 1], dtype=torch.int32)
+    results = []
+    for device in ('cpu', cuda_device):
+        model = VGSLModel(spec, generator=torch.Generator().manual_seed(0))
+        model.net.to(device).train().requires_grad_(True)
+        logits, olens = model(x.to(device), lens.to(device))
+        loss = ctc_loss(logits, olens, target.to(device), tlens.to(device)) / x.shape[0]
+        loss.backward()
+        results.append((loss.item(), {k: p.grad.cpu() for k, p in model.net.named_parameters()}))
+    (cpu_loss, cpu_grads), (card_loss, card_grads) = results
+    assert abs(card_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+    for k, g in cpu_grads.items():
+        assert _close(card_grads[k], g, 1e-4), k

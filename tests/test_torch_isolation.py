@@ -127,6 +127,14 @@ dm.setup('test')
 dm.val_set = dm.test_set
 seg_module.setup('test', dm)
 assert seg_module.validate(dm)['val_bl_f1'] > 0.5
+work = tempfile.mkdtemp()
+for args in (['train', '-f', 'path', '-s', '[1,32,0,1 Cr3,3,4,2,2 S1(1x0)1,3 Lbxo8]',
+              merge + '0006.jpg', merge + '0007.jpg', merge + '0021.jpg'],
+             ['segtrain', '-s', '[1,64,0,3 Cr3,3,4,2,2 Gn2]', res + '/170025120000003,0074.xml'],
+             ['rotrain', res + '/170025120000003,0074.xml']):
+    ketos.main(['-d', 'cpu', args[0], '-N', '1', '-o', os.path.join(work, args[0])] + args[1:],
+               standalone_mode=False)
+    assert load_models(os.path.join(work, args[0] + '_best.safetensors'))
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'kraken_tpu'))
 print('FORBIDDEN', bad)
@@ -138,9 +146,11 @@ def test_port_runs_without_jax_or_kraken_tpu(resources):
     (an ocropy and a transformer network among them), its segmentation (the task model and the legacy ``blla.segment``), its
     forced alignment, its neural reading order, its CLI (``segment -bl
     ocr`` to ALTO), its page pipeline, the host and the device nlbin, the
-    legacy box segmenter, the PDF extractor, ``ketos test`` on path input
-    and a segmentation model's validation on the CPU and never imports JAX
-    or kraken_tpu (the test process itself has JAX)."""
+    legacy box segmenter, the PDF extractor, ``ketos test`` on path input,
+    a segmentation model's validation and an epoch of ``ketos train``,
+    ``segtrain`` and ``rotrain`` (with their losses, optimizers and
+    checkpoints) on the CPU and never imports JAX or kraken_tpu (the test
+    process itself has JAX)."""
     out = subprocess.run([sys.executable, '-c', _CHILD, str(resources)], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -171,6 +181,8 @@ def test_source_scan_finds_no_jax_imports():
     assert {'ketos/__init__.py', 'ketos/recognition.py', 'ketos/segmentation.py',
             'ketos/dataset.py', 'ketos/weights.py', 'ketos/ro.py', 'ketos/util.py',
             'train/recognition.py', 'train/segmentation.py', 'train/metrics.py',
+            'train/losses.py', 'train/optim.py', 'train/checkpoint.py', 'train/trainer.py',
+            'train/ro.py', 'dataset/ro.py',
             'dataset/recognition.py', 'dataset/segmentation.py', 'dataset/arrow.py',
             'dataset/loader.py', 'dataset/utils.py', 'dataset/augmentation.py',
             'models/writers.py', 'models/_coreml_writer.py'} <= scanned

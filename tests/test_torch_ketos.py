@@ -25,9 +25,10 @@ on the CPU (``-d cpu``; the port's default device is the card):
   bit-equal parameters; ``roadd``: ``ro_small`` embedded in the shipped
   segmenter gives the neural order of ``torch_ro_golden.json``;
   ``compile``: the JAX CLI's rows;
-- ``--device`` defaults to ``cuda`` (a usage error without a card),
-  ``train``/``segtrain``/``rotrain``/``pretrain`` are usage errors naming
-  their ROADMAP items, and the training stages of the modules raise.
+- ``--device`` defaults to ``cuda`` (a usage error without a card);
+  ``train``/``segtrain``/``rotrain`` train an epoch on the CPU and write a
+  best model both packages load, ``pretrain`` is a usage error naming its
+  ROADMAP item, and ``setup('fit')`` builds a differentiable ``loss_fn``.
 """
 import json
 from pathlib import Path
@@ -83,12 +84,27 @@ def test_group_offers_the_commands():
                                  'train', 'segtrain', 'rotrain', 'pretrain'}
 
 
-@pytest.mark.parametrize('command, item', [('train', '9b'), ('segtrain', '9b'),
-                                           ('rotrain', '9b'), ('pretrain', '11')])
+@pytest.mark.parametrize('command, item', [('pretrain', '11')])
 def test_training_commands_are_usage_errors(command, item):
     result = port_cli(['-d', 'cpu', command, '-f', 'xml', '--epochs', '3', 'x.xml'])
     assert result.exit_code == 2
     assert f'ROADMAP.md queue 1 item {item}' in result.output
+
+
+@pytest.mark.parametrize('command, args', [
+    ('train', ['-f', 'path', '-s', '[1,32,0,1 Cr3,3,4,2,2 S1(1x0)1,3 Lbx8 Do0.1,2]',
+               *PATH_LINES]),
+    ('segtrain', ['-s', '[1,64,0,3 Cr3,3,4,2,2 Gn2]', PAGE_XML]),
+    ('rotrain', [PAGE_XML])], ids=['train', 'segtrain', 'rotrain'])
+def test_training_commands_run_an_epoch(command, args, tmp_path):
+    """Each training command trains one epoch on the CPU and writes its
+    checkpoints, the best of which loads as a model in both packages."""
+    from kraken_tpu.models import load_models as jax_load_models
+    from kraken_tpu_torch.models import load_models
+    ok(port_cli(['-d', 'cpu', '-s', '1', command, '-N', '1', '-o', tmp_path / 'm', *args]))
+    best = tmp_path / 'm_best.safetensors'
+    assert (tmp_path / 'm_0.safetensors').exists() and best.exists()
+    assert load_models(best) and jax_load_models(best)
 
 
 @pytest.mark.parametrize('args', [['test', '-m', MERGE_MODEL, *PATH_LINES],
@@ -102,23 +118,31 @@ def test_device_defaults_to_the_card(args, monkeypatch):
     assert '--device cuda asks for a CUDA card' in result.output and '--device cpu' in result.output
 
 
-def test_training_stages_raise():
+def test_fit_setup_builds_a_loss_fn():
+    """setup('fit') of the recognition and segmentation modules builds the
+    network from the training data and a loss_fn whose loss is finite and
+    differentiable."""
     from kraken_tpu_torch.configs import (RecognitionTrainingConfig, RecognitionTrainingDataConfig,
                                           SegmentationTrainingConfig,
                                           SegmentationTrainingDataConfig)
     from kraken_tpu_torch.train import (RecognitionDataModule, RecognitionModel,
                                         SegmentationDataModule, SegmentationModel)
-    for obj in (RecognitionDataModule(RecognitionTrainingDataConfig()),
-                SegmentationDataModule(SegmentationTrainingDataConfig())):
+    cases = [(RecognitionDataModule(RecognitionTrainingDataConfig(
+                  format_type='path', training_data=PATH_LINES[:3], evaluation_data=PATH_LINES[3:])),
+              RecognitionModel(RecognitionTrainingConfig(
+                  device='cpu', spec='[1,32,0,1 Cr3,3,4,2,2 S1(1x0)1,3 Lbx8]'))),
+             (SegmentationDataModule(SegmentationTrainingDataConfig(
+                  training_data=[PAGE_XML], evaluation_data=[PAGE_XML])),
+              SegmentationModel(SegmentationTrainingConfig(
+                  device='cpu', spec='[1,64,0,3 Cr3,3,4,2,2 Gn2]')))]
+    for dm, module in cases:
         for stage in ('fit', None):
-            with pytest.raises(NotImplementedError, match='item 9b'):
-                obj.setup(stage)
-        with pytest.raises(NotImplementedError, match='item 9b'):
-            obj.train_dataloader()
-    for obj in (RecognitionModel(RecognitionTrainingConfig(device='cpu')),
-                SegmentationModel(SegmentationTrainingConfig(device='cpu'))):
-        with pytest.raises(NotImplementedError, match='item 9b'):
-            obj.setup('fit', None)
+            dm.setup(stage)
+        module.setup('fit', dm)
+        loss = module.loss_fn(next(iter(dm.train_dataloader())))
+        loss.backward()
+        assert torch.isfinite(loss)
+        assert all(p.grad is not None for p in module.parameters())
 
 
 @pytest.mark.parametrize('inputs', [['-f', 'binary', MERGE / 'base.arrow'], PATH_LINES],

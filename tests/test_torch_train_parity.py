@@ -1,0 +1,374 @@
+"""
+The port's training math against the JAX package's on the CPU, on the same
+numpy-seeded inputs and weights (``from_jax_state_dict``):
+
+- the LSTM recurrence's gradients (torch autograd through the plain
+  version, what the card's backward kernel is held to) against ``jax.grad``
+  through ``_lstm_scan`` (ragged, both directions) and ``_peephole_scan``:
+  within 1e-5 of the largest gradient;
+- GroupNorm's gradients against ``jax.grad`` of ``GroupNorm.apply``, with
+  and without lengths: within 2e-4 of the largest (the JAX forward takes
+  its variance in one fp32 pass; the port's plain version in two);
+- the CTC loss on lines whose labels fit (loss within 1e-5 relative,
+  gradients 3e-5 of the largest: the two sum the alphas in other orders),
+  and the documented difference on lines
+  whose labels cannot fit (optax ~1e5 a line, the port 0);
+- BCE and Dice values and gradients (1e-6);
+- every optimizer under every schedule, with clipping and accumulation,
+  over 5 steps of the same gradients against optax (parameters within 1e-6
+  of the largest magnitude, about the float32 rounding of 5 updates);
+- a tiny recognizer's, segmenter's and reading-order MLP's ``loss_fn``
+  values and gradients against the JAX modules' (dropout off).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from kraken_tpu.nn.layers import GroupNorm as JaxGroupNorm
+from kraken_tpu.nn.layers import _lstm_scan, _peephole_scan
+from kraken_tpu.train import losses as jax_losses
+from kraken_tpu.train import optim as jax_optim
+from kraken_tpu_torch.ops.groupnorm import group_norm
+from kraken_tpu_torch.ops.lstm import lstm_recurrence
+from kraken_tpu_torch.train import losses
+from kraken_tpu_torch.train.optim import Optimizer
+
+
+def _close(got, want, rel):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = max(1.0, float(np.abs(want).max()))
+    assert got.shape == want.shape
+    assert float(np.abs(got - want).max()) <= rel * scale
+
+
+def _t(a, grad=False):
+    return torch.from_numpy(np.array(a)).requires_grad_(grad)
+
+
+# ------------------------------------------------------------------ LSTM
+
+@pytest.mark.parametrize('lens', [None, [12, 7, 1, 4]])
+@pytest.mark.parametrize('reverse', [False, True])
+def test_lstm_gradients_match_jax_scan(reverse, lens):
+    B, T, C, H = 4, 12, 6, 5
+    rng = np.random.RandomState(int(reverse) + (0 if lens is None else 2))
+    x = rng.randn(B, T, C).astype(np.float32)
+    w_ih = (0.4 * rng.randn(4 * H, C)).astype(np.float32)
+    w_hh = (0.4 * rng.randn(4 * H, H)).astype(np.float32)
+    b = (0.1 * rng.randn(4 * H)).astype(np.float32)
+    up = rng.randn(B, T, H).astype(np.float32)
+    jl = None if lens is None else jnp.asarray(lens)
+
+    def jax_loss(x, w_ih, w_hh, b):
+        return (_lstm_scan(x, jl, w_ih, w_hh, b, reverse) * up).sum()
+    want = jax.jit(jax.grad(jax_loss, argnums=(0, 1, 2, 3)))(*map(jnp.asarray, (x, w_ih, w_hh, b)))
+
+    tx, tw_ih, tw_hh, tb = (_t(a, True) for a in (x, w_ih, w_hh, b))
+    mask = torch.ones(B, T, dtype=torch.bool) if lens is None else \
+        torch.arange(T)[None, :] < torch.tensor(lens)[:, None]
+    gates = (tx @ tw_ih.t() + tb).reshape(B, T, 1, 4 * H)
+    out = lstm_recurrence(gates, tw_hh[None], mask, reverse)
+    (out[:, :, 0] * torch.from_numpy(up)).sum().backward()
+    for got, w in zip((tx.grad, tw_ih.grad, tw_hh.grad, tb.grad), want):
+        _close(got, w, 1e-5)
+
+
+@pytest.mark.parametrize('reverse', [False, True])
+def test_peephole_gradients_match_jax_scan(reverse):
+    B, T, C, H = 3, 10, 5, 4
+    rng = np.random.RandomState(7 + int(reverse))
+    x = rng.randn(B, T, C).astype(np.float32)
+    w_ih = (0.4 * rng.randn(4 * H, C)).astype(np.float32)
+    w_hh = (0.4 * rng.randn(4 * H, H)).astype(np.float32)
+    peep = (0.5 * rng.randn(3, H)).astype(np.float32)
+    up = rng.randn(B, T, H).astype(np.float32)
+
+    def jax_loss(x, w_ih, w_hh, peep):
+        return (_peephole_scan(x, w_ih, w_hh, peep[0], peep[1], peep[2], reverse) * up).sum()
+    want = jax.jit(jax.grad(jax_loss, argnums=(0, 1, 2, 3)))(*map(jnp.asarray, (x, w_ih, w_hh, peep)))
+
+    tx, tw_ih, tw_hh, tp = (_t(a, True) for a in (x, w_ih, w_hh, peep))
+    gates = (tx @ tw_ih.t()).reshape(B, T, 1, 4 * H)
+    out = lstm_recurrence(gates, tw_hh[None], torch.ones(B, T, dtype=torch.bool), reverse,
+                          peephole=tp[None])
+    (out[:, :, 0] * torch.from_numpy(up)).sum().backward()
+    for got, w in zip((tx.grad, tw_ih.grad, tw_hh.grad, tp.grad), want):
+        _close(got, w, 1e-5)
+
+
+# ------------------------------------------------------------- GroupNorm
+
+@pytest.mark.parametrize('shape, groups, lens', [
+    ((2, 8, 5, 31), 4, None),
+    ((3, 16, 5, 31), 8, [31, 12, 1]),
+    ((2, 12, 4, 40), 6, [7, 40]),
+])
+def test_group_norm_gradients_match_jax(shape, groups, lens):
+    rng = np.random.RandomState(sum(shape))
+    x = np.maximum(rng.randn(*shape), 0).astype(np.float32)
+    w = (1 + 0.1 * rng.randn(shape[1])).astype(np.float32)
+    b = (0.1 * rng.randn(shape[1])).astype(np.float32)
+    up = rng.randn(*shape).astype(np.float32)
+    seq = None if lens is None else np.asarray(lens, np.int32)
+    layer = JaxGroupNorm(shape[1], groups)
+
+    def jax_loss(x, w, b):
+        y, _ = layer.apply({'layer.weight': w, 'layer.bias': b}, x,
+                           None if seq is None else jnp.asarray(seq))
+        return (y * up).sum()
+    want = jax.jit(jax.grad(jax_loss, argnums=(0, 1, 2)))(*map(jnp.asarray, (x, w, b)))
+    tx, tw, tb = (_t(a, True) for a in (x, w, b))
+    y = group_norm(tx, tw, tb, groups, 1e-5, None if seq is None else torch.from_numpy(seq))
+    (y * torch.from_numpy(up)).sum().backward()
+    for got, wnt in zip((tx.grad, tw.grad, tb.grad), want):
+        _close(got, wnt, 2e-4)
+    if lens is not None:
+        for n, L in enumerate(lens):
+            assert not tx.grad[n, :, :, L:].any()
+
+
+# ------------------------------------------------------------------ losses
+
+def _ctc_inputs(N, C, W, L, seed):
+    rng = np.random.RandomState(seed)
+    logits = (2 * rng.randn(N, C, 1, W)).astype(np.float32)
+    olens = np.array([W - 3 * i for i in range(N)], np.int32)
+    label_lens = np.array([L - i for i in range(N)], np.int32)
+    labels = np.zeros((N, L + 2), np.int32)
+    for i, n in enumerate(label_lens):
+        labels[i, :n] = rng.randint(1, C, n)
+    return logits, olens, labels, label_lens
+
+
+def test_ctc_matches_jax_on_feasible_lines():
+    logits, olens, labels, label_lens = _ctc_inputs(4, 30, 40, 12, 0)
+    args = tuple(map(jnp.asarray, (olens, labels, label_lens)))
+    want, want_g = jax.jit(jax.value_and_grad(jax_losses.ctc_loss))(jnp.asarray(logits), *args)
+    tl = _t(logits, True)
+    got = losses.ctc_loss(tl, *(torch.from_numpy(a) for a in (olens, labels, label_lens)))
+    got.backward()
+    assert abs(got.item() - float(want)) <= 1e-5 * abs(float(want))
+    _close(tl.grad, want_g, 3e-5)
+
+
+def test_ctc_on_lines_whose_labels_cannot_fit():
+    """Two lines (6 and 4 frames) whose labels need more: optax returns about
+    1e5 each (log_epsilon), which the JAX isfinite filter keeps; torch's
+    loss is infinite and zero_infinity drops it (the documented
+    semantics). A feasible line beside them counts the same in both."""
+    rng = np.random.RandomState(1)
+    logits = rng.randn(3, 5, 1, 6).astype(np.float32)
+    olens = np.array([6, 4, 6], np.int32)
+    labels = np.array([[1, 1, 2, 2, 3, 3], [1, 2, 1, 2, 1, 2], [1, 2, 3, 0, 0, 0]], np.int32)
+    label_lens = np.array([6, 6, 3], np.int32)
+    per_line_jax = [float(jax_losses.ctc_loss(jnp.asarray(logits[i:i + 1]),
+                                              jnp.asarray(olens[i:i + 1]),
+                                              jnp.asarray(labels[i:i + 1]),
+                                              jnp.asarray(label_lens[i:i + 1])))
+                    for i in range(3)]
+    per_line = [losses.ctc_loss(*(torch.from_numpy(a[i:i + 1])
+                                  for a in (logits, olens, labels, label_lens))).item()
+                for i in range(3)]
+    print('infeasible lines, JAX:', per_line_jax[:2], 'port:', per_line[:2])
+    assert all(9e4 < v < 2e5 for v in per_line_jax[:2])
+    assert per_line[:2] == [0.0, 0.0]
+    assert abs(per_line[2] - per_line_jax[2]) <= 1e-5 * per_line_jax[2]
+
+
+@pytest.mark.parametrize('fn', ['bce_logits_loss', 'dice_loss', 'segmentation_loss'])
+def test_segmentation_losses_match_jax(fn):
+    rng = np.random.RandomState(3)
+    logits = (3 * rng.randn(2, 4, 9, 11)).astype(np.float32)
+    target = (rng.rand(2, 4, 9, 11) > 0.7).astype(np.float32)
+    want, want_g = jax.value_and_grad(getattr(jax_losses, fn))(jnp.asarray(logits),
+                                                               jnp.asarray(target))
+    tl = _t(logits, True)
+    got = getattr(losses, fn)(tl, torch.from_numpy(target))
+    got.backward()
+    assert abs(got.item() - float(want)) <= 1e-6 * max(1.0, abs(float(want)))
+    _close(tl.grad, want_g, 1e-6)
+
+
+# -------------------------------------------------------------- optimizers
+
+class _Cfg:
+    """The JAX TrainingConfig's fields the optimizer builders read."""
+
+    def __init__(self, **kw):
+        self.__dict__.update(dict(
+            lrate=1e-2, schedule='constant', gamma=0.5, cos_t_max=2, cos_min_lr=1e-4,
+            step_size=1, epochs=3, warmup=0, optimizer='AdamW', weight_decay=0.01,
+            momentum=0.9, gradient_clip_val=1.0, accumulate_grad_batches=1), **kw)
+
+
+def _optimize(cfg, steps=5, steps_per_epoch=2):
+    rng = np.random.RandomState(11)
+    shapes = [(3, 4), (5,), (2, 2, 3)]
+    params = [rng.randn(*s).astype(np.float32) for s in shapes]
+    grads = [[(0.7 * rng.randn(*s)).astype(np.float32) for s in shapes] for _ in range(steps)]
+    tx = jax_optim.build_optimizer(cfg, steps_per_epoch)
+    jp = [jnp.asarray(p) for p in params]
+    state = tx.init(jp)
+
+    @jax.jit
+    def update(g, state, jp):
+        updates, state = tx.update(g, state, jp)
+        return optax.apply_updates(jp, updates), state
+    for g in grads:
+        jp, state = update([jnp.asarray(a) for a in g], state, jp)
+    tp = [torch.from_numpy(p.copy()) for p in params]
+    opt = Optimizer(tp, cfg, steps_per_epoch)
+    for g in grads:
+        for p, a in zip(tp, g):
+            p.grad = torch.from_numpy(a)
+        opt.step()
+    return tp, jp
+
+
+@pytest.mark.parametrize('schedule', ['constant', 'exponential', 'cosine', 'step',
+                                      'reduceonplateau', '1cycle'])
+@pytest.mark.parametrize('name', ['Adam', 'AdamW', 'SGD', 'RMSprop', 'Lamb'])
+def test_optimizer_follows_optax(name, schedule):
+    tp, jp = _optimize(_Cfg(optimizer=name, schedule=schedule))
+    for p, q in zip(tp, jp):
+        _close(p, q, 1e-6)
+
+
+@pytest.mark.parametrize('kw', [dict(warmup=3), dict(gradient_clip_val=0),
+                                dict(accumulate_grad_batches=2),
+                                dict(accumulate_grad_batches=3, schedule='exponential'),
+                                dict(warmup=2, schedule='cosine', optimizer='Lamb')],
+                         ids=['warmup', 'no_clip', 'accumulate2', 'accumulate3_exponential',
+                              'warmup_cosine_lamb'])
+def test_optimizer_options_follow_optax(kw):
+    tp, jp = _optimize(_Cfg(**kw), steps=6)
+    for p, q in zip(tp, jp):
+        _close(p, q, 1e-6)
+
+
+def test_schedules_match_optax():
+    from kraken_tpu_torch.train.optim import build_lr_schedule
+    for schedule in ('constant', 'exponential', 'cosine', 'step', '1cycle'):
+        for warmup in (0, 3):
+            cfg = _Cfg(schedule=schedule, warmup=warmup, epochs=4)
+            want = jax_optim.build_lr_schedule(cfg, 3)
+            got = build_lr_schedule(cfg, 3)
+            for count in range(20):
+                assert abs(got(count) - float(want(count))) <= 1e-6 * cfg.lrate, (schedule, count)
+
+
+# ------------------------------------------------------- modules' loss_fn
+
+def _port_of(jax_net, vgsl):
+    from kraken_tpu_torch.vgsl import VGSLModel
+    net = VGSLModel(vgsl)
+    net.from_jax_state_dict(jax_net.state_dict())
+    return net
+
+
+def _jax_grads(grads) -> dict:
+    return {f'{layer}.{k}': np.asarray(v) for layer, d in grads.items() for k, v in d.items()}
+
+
+@pytest.mark.parametrize('spec', [
+    '[1,24,0,1 Cr3,3,4 Mp2,2 S1(1x0)1,3 Lbx6 Do0.1,2 Lfx5 O1c9]',
+    '[1,24,0,1 Cr3,3,4 Gn2 Mp2,2 S1(1x0)1,3 Lbxo6 O1c9]',
+    '[1,24,0,1 Cr3,3,8,2,2 S1(1x0)1,3 Cl1,1,8 Te2,8,16 Do0.1,2 O1c9]',
+], ids=['lstm', 'groupnorm_peephole', 'transformer'])
+def test_recognition_loss_fn_matches_jax(spec):
+    from kraken_tpu.configs import RecognitionTrainingConfig as JaxConfig
+    from kraken_tpu.train.recognition import RecognitionModel as JaxModel
+    from kraken_tpu.vgsl import VGSLModel as JaxVGSL
+    from kraken_tpu_torch.configs import RecognitionTrainingConfig
+    from kraken_tpu_torch.nn.layers import Dropout
+    from kraken_tpu_torch.train.recognition import RecognitionModel
+
+    jax_net = JaxVGSL(spec, rng=jax.random.PRNGKey(0))
+    rng = np.random.RandomState(5)
+    batch = {'image': rng.rand(3, 1, 24, 32).astype(np.float32),
+             'seq_lens': np.array([32, 25, 13], np.int32),
+             'target': np.array([[1, 2, 3, 4], [5, 5, 6, 0], [7, 8, 0, 0]], np.int32),
+             'target_lens': np.array([4, 3, 2], np.int32)}
+    jm = JaxModel(JaxConfig(), net=jax_net)
+    jm._build_fns()
+    want, grads = jax.jit(jax.value_and_grad(jm.loss_fn))(
+        jax_net.params, {k: jnp.asarray(v) for k, v in batch.items()}, None)
+    want_g = _jax_grads(grads)
+    module = RecognitionModel(RecognitionTrainingConfig(device='cpu'),
+                              net=_port_of(jax_net, jax_net.spec))
+    module._place_for_training()
+    for m in module.net.net.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    module.net.net.apply(lambda m: setattr(m, 'dropout', 0.0) if hasattr(m, 'heads') else None)
+    loss = module.loss_fn(batch)
+    loss.backward()
+    assert abs(loss.item() - float(want)) <= 1e-5 * abs(float(want))
+    got = dict(module.net.net.named_parameters())
+    assert set(got) == set(want_g)
+    for k, g in want_g.items():
+        _close(got[k].grad, g, 1e-4 if 'Gn' in spec else 2e-5)
+
+
+def test_segmentation_loss_fn_matches_jax():
+    from kraken_tpu.configs import SegmentationTrainingConfig as JaxConfig
+    from kraken_tpu.train.segmentation import SegmentationModel as JaxModel
+    from kraken_tpu.vgsl import VGSLModel as JaxVGSL
+    from kraken_tpu_torch.configs import SegmentationTrainingConfig
+    from kraken_tpu_torch.train.segmentation import SegmentationModel
+
+    spec = '[1,48,0,3 Cr3,3,8,2,2 Gn4 Cr3,3,8 Gn2 O2l5]'
+    jax_net = JaxVGSL(spec, rng=jax.random.PRNGKey(1))
+    rng = np.random.RandomState(6)
+    batch = {'image': rng.rand(2, 3, 48, 37).astype(np.float32),
+             'target': (rng.rand(2, 5, 48, 37) > 0.8).astype(np.float32)}
+    jm = JaxModel(JaxConfig(), net=jax_net)
+    jm._build_fns()
+    want, grads = jax.jit(jax.value_and_grad(jm.loss_fn))(
+        jax_net.params, {k: jnp.asarray(v) for k, v in batch.items()}, None)
+    module = SegmentationModel(SegmentationTrainingConfig(device='cpu'),
+                               net=_port_of(jax_net, jax_net.spec))
+    module._place_for_training()
+    loss = module.loss_fn(batch)
+    loss.backward()
+    assert abs(loss.item() - float(want)) <= 1e-5 * abs(float(want))
+    got = dict(module.net.net.named_parameters())
+    for k, g in _jax_grads(grads).items():
+        _close(got[k].grad, g, 2e-4)
+
+
+def test_reading_order_loss_fn_matches_jax():
+    from kraken_tpu.configs import ReadingOrderTrainingConfig as JaxConfig
+    from kraken_tpu.ro.layers import ROMLP as JaxROMLP
+    from kraken_tpu.train.ro import ROModel as JaxModel
+    from kraken_tpu_torch.configs import ReadingOrderTrainingConfig
+    from kraken_tpu_torch.ro.layers import ROMLP
+    from kraken_tpu_torch.train.ro import ROModel
+
+    mapping = {'default': 0, 'a': 1, 'b': 2}
+    jax_net = JaxROMLP(rng=jax.random.PRNGKey(2), class_mapping=mapping, level='baselines')
+
+    class _DM:
+        class_mapping = mapping
+    jm = JaxModel(JaxConfig(), net=jax_net)
+    jm.setup('fit', _DM())
+    rng = np.random.RandomState(8)
+    batch = {'sample': rng.rand(16, jax_net.feature_size * 1).astype(np.float32),
+             'target': (rng.rand(16) > 0.5).astype(np.float32)}
+    want, grads = jax.jit(jax.value_and_grad(jm.loss_fn))(
+        jax_net.params, {k: jnp.asarray(v) for k, v in batch.items()}, None)
+    net = ROMLP(class_mapping=mapping, level='baselines')
+    with torch.no_grad():
+        for k, v in jax_net.params.items():
+            dict(net.nn.named_parameters())[k].copy_(torch.from_numpy(np.asarray(v)))
+    module = ROModel(ReadingOrderTrainingConfig(device='cpu'), net=net)
+    module.setup('fit', _DM())
+    loss = module.loss_fn(batch)
+    loss.backward()
+    assert abs(loss.item() - float(want)) <= 1e-6 * abs(float(want))
+    got = dict(net.nn.named_parameters())
+    for k, g in grads.items():
+        _close(got[k].grad, g, 1e-6)
