@@ -76,14 +76,20 @@
 //   forward also writes, per step, the activated gates, the cell carry after
 //   the step and the h carry before it, fp32. The carry is frozen at a masked
 //   step, so the cell carry saved there is the one before it. The gradient
-//   is lstm_backward_kernel: the stream design's shape (a block per tile of 4
-//   rows and direction, both directions in one launch, w_hh read from L2
-//   every step), each direction walking its steps in the reverse of its
-//   forward order; see the kernel for its math. Its 4H-long sum of
-//   dh = dgates @ w_hh a step is split over up to 8 slices of the block's
-//   threads. dW_hh, the peephole weights' gradients and everything that is a
-//   product over all steps at once stay in torch (as XLA computes them outside
-//   any kernel in the JAX package).
+//   has two designs too, both directions in one launch, each walking its
+//   steps in the reverse of its forward order (ops/lstm.py:_backward_design
+//   picks, by the forward's rule):
+//   "cluster" (lstm_backward_cluster_kernel): the forward's cluster and
+//   w_hh slice; each CTA forms the partial dh_carry of its units' dgates
+//   over all H columns and sends each column's to its owner (st.async), who
+//   adds the C partials in rank order; see the kernel.
+//   "stream" (lstm_backward_kernel, the first port's): a block per tile of
+//   4 rows and direction, w_hh read from L2 every step, the 4H-long sum of
+//   dh = dgates @ w_hh a step split over up to 8 slices of the block's
+//   threads; for hidden sizes whose slice no cluster holds.
+//   dW_hh, the peephole weights' gradients and everything that is a product
+//   over all steps at once stay in torch (as XLA computes them outside any
+//   kernel in the JAX package).
 //
 // Layouts (all contiguous):
 //   gates  (B, T, D, 4H)  fp32 | bf16 | fp16, biases included
@@ -728,6 +734,322 @@ __global__ void __launch_bounds__(1024) lstm_backward_kernel(
   }
 }
 
+// The recurrence's gradient in the cluster design's shape: the math of
+// lstm_backward_kernel above, with w_hh on chip. One cluster of C CTAs per
+// (tile of R rows, direction), both directions in one launch. CTA j owns
+// hidden units U_j = [j*H/C, (j+1)*H/C) and keeps in shared memory, once a
+// launch, the 4 gate rows of w_hh of those units: the forward's slice, in
+// the forward's padded layout (w_s[ul][k] = the 4 gates of unit u0+ul,
+// column k). Per step, walked in the reverse of the direction's forward
+// order:
+//   1. the step's dout, saved gates and c_t, c_{t-1} of its cells (unit,
+//      row) are loaded first, so their latency hides behind the wait;
+//   2. it waits on its own mbarrier until all C partial sums of dh_carry
+//      of its units (from the step before) are in, and adds them in rank
+//      order 0..C-1 (the same bits on every run), which gives dh_carry of
+//      its cells;
+//   3. each of its cells takes the step (dgates, the dc carry in a
+//      register; a masked step passes both carries on and has dgates 0),
+//      writes dgates to device memory and to shared memory;
+//   4. one __syncthreads; then, for every column k of all H and every group
+//      of 4 rows, the CTA's partial dh_carry[b][k] = sum over its units u
+//      and gates q of dgates[b][q][u] * w_hh[q*H+u][k] (16 independent
+//      FMAs per unit, reduced in a fixed order);
+//   5. each partial goes, 4 rows as one float4, by st.async into the
+//      receive slot of column k's owner, counted on the owner's mbarrier
+//      (complete_tx), in the buffer of this step's parity.
+// The exchange is H*R floats a CTA a step, the volume of the forward's h
+// exchange; there is no cluster barrier per step. Two receive buffers are
+// enough: a CTA writes buffer p of step s + 2 only after its wait for step
+// s + 1, which needs the owner's step s + 1 partials, which the owner sends
+// only after its __syncthreads of step s + 1, after its reads of buffer p.
+// Its dgates are double-buffered in shared memory for the same reason, so
+// one __syncthreads a step is enough. Nothing is sent after the last step.
+// Shared memory per CTA (bytes): 16 * (ceil(H/C) * HP + 2 * C * ceil(H/C) *
+// R/4 + 2 * ceil(H/C) * R), and two mbarriers.
+template <int ITERS, bool PEEP>
+__global__ void __launch_bounds__(CLUSTER_THREADS) lstm_backward_cluster_kernel(
+    const float* __restrict__ dout, const float* __restrict__ gates, const float* __restrict__ cs,
+    const float* __restrict__ w_hh, const uint8_t* __restrict__ mask, const float* __restrict__ peep,
+    float* __restrict__ dgates, int B, int T_len, int D, int H, int R, int reverse0) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int d = blockIdx.y;
+  const int row0 = (blockIdx.x / C) * R;
+  const bool reverse = (d == 1) != (reverse0 != 0);
+  const int G = 4 * H;
+  const int u0 = rank * H / C;
+  const int n_units = (rank + 1) * H / C - u0;
+  const int max_units = (H + C - 1) / C;
+  const int HP = padded_h(H);
+  const int RG = R / 4;
+  const int recv_len = C * max_units * RG;  // float4s of one receive buffer
+  const int dg_len = 4 * RG * max_units;    // float4s of one dgates buffer
+
+  extern __shared__ float4 smem[];
+  float4* w_s = smem;                            // [max_units][HP]
+  float4* recv = w_s + (size_t)max_units * HP;   // [2][C][max_units][RG]: partials, 4 rows a float4
+  float4* dg_s = recv + 2 * (size_t)recv_len;    // [2][4][RG][max_units]: dgates of gate q, 4 rows
+  uint64_t* bar = reinterpret_cast<uint64_t*>(dg_s + 2 * (size_t)dg_len);  // [2]: receive buffer full
+  // every CTA sends the partials of this CTA's units for all R rows
+  const uint32_t step_bytes = (uint32_t)(C * n_units * RG * sizeof(float4));
+
+  for (int i = threadIdx.x; i < n_units * H; i += blockDim.x) {
+    const int ul = i / H, k = i % H;
+    const float* w = w_hh + ((size_t)d * G + u0 + ul) * H + k;
+    w_s[(size_t)ul * HP + k] = make_float4(w[0], w[(size_t)H * H], w[(size_t)2 * H * H], w[(size_t)3 * H * H]);
+  }
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_u32(bar + b)) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    expect_bytes(smem_u32(bar), step_bytes);
+    expect_bytes(smem_u32(bar + 1), step_bytes);
+  }
+  // every CTA of the cluster is running and initialised before any DSMEM store
+  cluster.sync();
+
+  // cells: (row, unit) pairs, rows fastest (4 lanes a unit and row group),
+  // cell c = (rg * n_units + ul) * 4 + r; their carries stay in registers
+  const int n_cells = n_units * R;
+  float dh[ITERS], dc[ITERS], pw[ITERS][3];
+  bool live_prev[ITERS];
+#pragma unroll
+  for (int it = 0; it < ITERS; ++it) {
+    dh[it] = dc[it] = 0.f;
+    live_prev[it] = false;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) pw[it][q] = 0.f;
+    if constexpr (PEEP) {
+      const int cell = it * blockDim.x + threadIdx.x;
+      if (cell < n_cells) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) pw[it][q] = peep[((size_t)d * 3 + q) * H + u0 + (cell >> 2) % n_units];
+      }
+    }
+  }
+  // columns: (k, row group) pairs, k fastest; each sends its partial to
+  // the owner of k, into slot [this rank][k - owner's u0][rg]
+  const int n_cols = H * RG;
+  uint32_t slot[ITERS];
+  int owner[ITERS];
+#pragma unroll
+  for (int it = 0; it < ITERS; ++it) {
+    const int col = it * blockDim.x + threadIdx.x;
+    slot[it] = 0;
+    owner[it] = 0;
+    if (col < n_cols) {
+      const int k = col % H, rg = col / H;
+      owner[it] = ((k + 1) * C - 1) / H;  // the largest m with m*H/C <= k
+      const int kl = k - owner[it] * H / C;
+      slot[it] = smem_u32(recv + ((size_t)rank * max_units + kl) * RG + rg);
+    }
+  }
+
+  for (int s = 0; s < T_len; ++s) {
+    const int sf = T_len - 1 - s;               // the forward's step index, walked back
+    const int t = reverse ? T_len - 1 - sf : sf;
+    const int tp = reverse ? t + 1 : t - 1;     // the step before, in the forward's order
+    // this step's inputs of the cells, in flight while the partials arrive
+    float g[ITERS][4], c_t[ITERS], c_prev[ITERS], dy[ITERS];
+    bool m[ITERS];
+#pragma unroll
+    for (int it = 0; it < ITERS; ++it) {
+      const int cell = it * blockDim.x + threadIdx.x;
+      const int item = cell >> 2;
+      const int b = row0 + (item / n_units) * 4 + (cell & 3);
+      m[it] = false;
+      c_t[it] = c_prev[it] = dy[it] = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) g[it][q] = 0.f;
+      if (cell < n_cells && b < B) {
+        m[it] = mask[(size_t)b * T_len + t] != 0;
+        const size_t o = ((size_t)b * T_len + t) * D + d;
+        const int u = u0 + item % n_units;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) g[it][q] = gates[o * G + q * H + u];
+        c_t[it] = cs[o * H + u];
+        c_prev[it] = sf > 0 ? cs[(((size_t)b * T_len + tp) * D + d) * H + u] : 0.f;
+        dy[it] = dout[o * H + u];
+      }
+    }
+    // the partials of step s - 1: buffer (s - 1) & 1, its ((s - 1) >> 1)-th
+    // fill. Re-arming it at once is safe: its next bytes are sent only after
+    // every CTA has this CTA's partials of step s, which it sends later.
+    const int prev = (s - 1) & 1;
+    if (s > 0) {
+      const uint32_t b = smem_u32(bar + prev);
+      wait_phase(b, ((s - 1) >> 1) & 1);
+      if (threadIdx.x == 0) expect_bytes(b, step_bytes);
+    }
+
+    float4* dg_out = dg_s + (size_t)(s & 1) * dg_len;
+#pragma unroll
+    for (int it = 0; it < ITERS; ++it) {
+      const int cell = it * blockDim.x + threadIdx.x;
+      if (cell >= n_cells) continue;
+      const int item = cell >> 2, r = cell & 3;
+      const int ul = item % n_units, rg = item / n_units;
+      const int b = row0 + rg * 4 + r;
+      if (s > 0 && live_prev[it]) {
+        const float* rv = reinterpret_cast<const float*>(recv + (size_t)prev * recv_len);
+        float sum = 0.f;
+        for (int j = 0; j < C; ++j) sum += rv[(((size_t)j * max_units + ul) * RG + rg) * 4 + r];
+        dh[it] = sum;
+      }
+      float dg[4] = {0.f, 0.f, 0.f, 0.f};
+      if (m[it]) {
+        const float ig = g[it][0], fg = g[it][1], gg = g[it][2], og = g[it][3];
+        const float tc = tanhf(c_t[it]);
+        const float dht = dy[it] + dh[it];
+        const float dpo = dht * tc * og * (1.f - og);
+        float dct = dc[it] + dht * og * (1.f - tc * tc);
+        if constexpr (PEEP) dct += dpo * pw[it][2];
+        const float dpi = dct * gg * ig * (1.f - ig);
+        const float dpg = dct * ig * (1.f - gg * gg);
+        const float dpf = dct * c_prev[it] * fg * (1.f - fg);
+        float dcp = dct * fg;
+        if constexpr (PEEP) dcp += dpi * pw[it][0] + dpf * pw[it][1];
+        dc[it] = dcp;
+        dg[0] = dpi;
+        dg[1] = dpf;
+        dg[2] = dpg;
+        dg[3] = dpo;
+      }
+      live_prev[it] = m[it];
+      if (b < B) {
+        float* out = dgates + (((size_t)b * T_len + t) * D + d) * G + u0 + ul;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) out[q * H] = dg[q];
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        reinterpret_cast<float*>(dg_out + ((size_t)q * RG + rg) * max_units + ul)[r] = dg[q];
+      }
+    }
+    if (s + 1 == T_len) break;  // nothing is sent after the last step
+    __syncthreads();
+
+#pragma unroll
+    for (int it = 0; it < ITERS; ++it) {
+      const int col = it * blockDim.x + threadIdx.x;
+      if (col >= n_cols) continue;
+      const int k = col % H, rg = col / H;
+      float acc[4][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[q][r] = 0.f;
+      }
+      const float4* gq = dg_out + (size_t)rg * max_units;
+#pragma unroll 4
+      for (int ul = 0; ul < n_units; ++ul) {
+        const float4 w = w_s[(size_t)ul * HP + k];
+        const float wq[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 gv = gq[(size_t)q * RG * max_units + ul];
+          acc[q][0] = fmaf(wq[q], gv.x, acc[q][0]);
+          acc[q][1] = fmaf(wq[q], gv.y, acc[q][1]);
+          acc[q][2] = fmaf(wq[q], gv.z, acc[q][2]);
+          acc[q][3] = fmaf(wq[q], gv.w, acc[q][3]);
+        }
+      }
+      float p[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) p[r] = (acc[0][r] + acc[1][r]) + (acc[2][r] + acc[3][r]);
+      const uint32_t buf = slot[it] + (uint32_t)((s & 1) * recv_len * sizeof(float4));
+      st_async(map_rank(buf, owner[it]), make_float4(p[0], p[1], p[2], p[3]),
+               map_rank(smem_u32(bar + (s & 1)), owner[it]));
+    }
+  }
+}
+
+struct BackwardShape {
+  int units;    // ceil(H / C): the most hidden units a CTA owns
+  int hp;       // padded row stride of w_hh, in float4
+  int iters;    // slots each thread takes per step, of cells and of columns
+  int threads;  // block size, a multiple of 32
+  size_t smem;  // dynamic shared memory, bytes
+};
+
+BackwardShape backward_cluster_shape(int H, int C, int R) {
+  BackwardShape s;
+  s.units = (H + C - 1) / C;
+  s.hp = padded_h(H);
+  const int RG = R / 4;
+  const int slots = s.units * R > H * RG ? s.units * R : H * RG;  // cells, columns
+  s.iters = (slots + CLUSTER_THREADS - 1) / CLUSTER_THREADS;
+  s.threads = ((slots + s.iters - 1) / s.iters + 31) / 32 * 32;
+  // w_hh slice, the partials received (two buffers of C), this CTA's
+  // dgates (two buffers), and one mbarrier per receive buffer
+  s.smem = sizeof(float4) * ((size_t)s.units * s.hp + 2 * (size_t)C * s.units * RG + 2 * (size_t)4 * RG * s.units) +
+           2 * sizeof(uint64_t);
+  return s;
+}
+
+struct BackwardArgs {
+  const float *dout, *gates, *cs, *w_hh;
+  const uint8_t* mask;
+  const float* peep;
+  float* dgates;
+};
+
+template <int ITERS, bool PEEP>
+cudaError_t launch_backward_cluster_iters(const BackwardShape& s, const BackwardArgs& a, int B, int T_len, int D,
+                                          int H, int C, int R, int reverse0, cudaStream_t stream,
+                                          int* max_clusters) {
+  auto kernel = lstm_backward_cluster_kernel<ITERS, PEEP>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
+  if (err != cudaSuccess) return err;
+  if (C > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * ((B + R - 1) / R), D);
+  cfg.blockDim = dim3(s.threads);
+  cfg.dynamicSmemBytes = s.smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (*max_clusters == 0) return cudaErrorLaunchOutOfResources;
+  if (a.dgates == nullptr) return cudaSuccess;  // a query only (lstm_backward_cluster_occupancy)
+  return cudaLaunchKernelEx(&cfg, kernel, a.dout, a.gates, a.cs, a.w_hh, a.mask, a.peep, a.dgates, B, T_len,
+                            D, H, R, reverse0);
+}
+
+template <bool PEEP>
+cudaError_t launch_backward_cluster_peep(const BackwardShape& s, const BackwardArgs& a, int B, int T_len, int D,
+                                         int H, int C, int R, int reverse0, cudaStream_t stream,
+                                         int* max_clusters) {
+  switch (s.iters) {
+    case 1: return launch_backward_cluster_iters<1, PEEP>(s, a, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
+    case 2: return launch_backward_cluster_iters<2, PEEP>(s, a, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
+    case 3: return launch_backward_cluster_iters<3, PEEP>(s, a, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
+    case 4: return launch_backward_cluster_iters<4, PEEP>(s, a, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
+    default: return cudaErrorInvalidValue;  // more slots than MAX_ITERS * CLUSTER_THREADS
+  }
+}
+
+cudaError_t launch_backward_cluster(const BackwardArgs& a, int B, int T_len, int D, int H, int C, int R,
+                                    int reverse0, cudaStream_t stream, int* max_clusters) {
+  const BackwardShape s = backward_cluster_shape(H, C, R);
+  if (a.peep != nullptr) {
+    return launch_backward_cluster_peep<true>(s, a, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
+  }
+  return launch_backward_cluster_peep<false>(s, a, B, T_len, D, H, C, R, reverse0, stream, max_clusters);
+}
+
 // threads of the backward block: S slices of the hidden units rounded up to
 // a warp, S the most (up to 8) that fit 1024 threads
 void backward_shape(int H, int* HP, int* S) {
@@ -852,4 +1174,49 @@ extern "C" int lstm_recurrence_backward(const void* dout, const void* gates, con
   }
   err = cudaGetLastError();
   return (int)err;
+}
+
+// The recurrence's gradient in the cluster design (lstm_backward_cluster_kernel),
+// both directions in one launch: the arguments of lstm_recurrence_backward,
+// with C CTAs (1..16) a cluster and R (a multiple of 4) rows a tile. A
+// cluster shape the card cannot hold is an error.
+extern "C" int lstm_recurrence_backward_cluster(const void* dout, const void* gates, const void* cs,
+                                                const void* w_hh, const void* mask, const void* peep,
+                                                void* dgates, int B, int T_len, int D, int H, int C, int R,
+                                                int reverse0, int device, void* stream) {
+  if (!valid_shape(B, T_len, D, H) || C < 1 || C > 16 || C > H || R < 4 || R % 4 || dgates == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const BackwardArgs a{static_cast<const float*>(dout), static_cast<const float*>(gates),
+                       static_cast<const float*>(cs), static_cast<const float*>(w_hh),
+                       static_cast<const uint8_t*>(mask), static_cast<const float*>(peep),
+                       static_cast<float*>(dgates)};
+  int clusters = 0;
+  err = launch_backward_cluster(a, B, T_len, D, H, C, R, reverse0, static_cast<cudaStream_t>(stream), &clusters);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // not reported again by the next launch of any kernel
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// What the backward's cluster design asks of the card at (H, C, R): its
+// dynamic shared memory per CTA and block size, and how many such clusters
+// fit at once (0: it cannot run them).
+extern "C" int lstm_backward_cluster_occupancy(int H, int C, int R, int device, int* smem_bytes, int* threads,
+                                               int* max_clusters) {
+  if (H <= 0 || C < 1 || C > 16 || C > H || R < 4 || R % 4) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const BackwardShape s = backward_cluster_shape(H, C, R);
+  *smem_bytes = (int)s.smem;
+  *threads = s.threads;
+  *max_clusters = 0;
+  // a query (no dgates) of the kernel that would launch, one tile of one direction
+  const BackwardArgs none{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  err = launch_backward_cluster(none, R, 1, 1, H, C, R, 0, 0, max_clusters);
+  if (err != cudaSuccess) cudaGetLastError();
+  return (int)(err == cudaErrorLaunchOutOfResources ? cudaSuccess : err);
 }

@@ -28,11 +28,15 @@ in for the other.
 Training: where grad mode is on and `x`, `weight` or `bias` require a
 gradient, :func:`group_norm` on a CUDA tensor runs
 :class:`GroupNormFunction`: either design also writes each (sample,
-group)'s mean and rstd, and the two backward launches of
-``csrc/groupnorm.cu`` give dx (zero at the pad columns) and the per-(sample,
-channel) sums of the affine's gradients (counter
-``group_norm.backward_launches``, 2 a call), float32 only. On a CPU tensor
-the plain version's torch autograd is the gradient.
+group)'s mean and rstd, and one backward launch of ``csrc/groupnorm.cu``
+gives dx (zero at the pad columns) and the partial sums of the affine's
+gradients, float32 only. Its route comes from the shapes
+(:func:`_backward_design`): ``cluster`` holds each group's x and dy in a
+cluster's shared memory (read once), ``l2`` reads each group twice in one
+cooperative launch that keeps few enough groups in flight for the second
+read to find them in L2. Counters ``group_norm.backward_launches`` (1 a
+call) and ``group_norm.backward_design_launches``. On a CPU tensor the
+plain version's torch autograd is the gradient.
 """
 import ctypes
 import functools
@@ -148,6 +152,106 @@ def _design(N: int, C: int, H: int, W: int, G: int, dtype: torch.dtype) -> tuple
     return ('stream',)
 
 
+def _bwd_cluster_smem(rows: int, W: int, Cg: int) -> int:
+    """Bytes of dynamic shared memory a CTA of the backward's cluster route
+    takes for up to `rows` rows of W elements: the rows of x and of dy in
+    fp32 (each as :func:`_cluster_smem` lays them out), each row's weight
+    and the CTA's (A, B) of each of the group's Cg channels."""
+    return 2 * ((rows * W * 4 + 32 + 15) // 16 * 16) + 4 * rows + 8 * Cg
+
+
+# the backward's cluster sizes, and the shared memory a CTA may take for
+# three of them to share an SM (233,472 bytes an SM, 1 KB of each CTA the
+# system's, 1 KB of static shared memory)
+BWD_CLUSTER_SIZES = (1, 2, 4, 8, 16)
+BWD_SMEM_SHARED = 233472 // 3 - 2048
+
+
+@functools.lru_cache(maxsize=256)
+def _backward_design(N: int, C: int, H: int, W: int, G: int) -> tuple:
+    """
+    The backward kernel's route for a call, from its shapes alone:
+    ``('cluster', CL, R)`` holds each group's x and dy in a cluster of CL
+    CTAs of at most R rows each (x and dy read once); ``('l2',)`` reads each
+    group twice, the second time from L2, in one cooperative launch (groups
+    whose x and dy no cluster holds).
+
+    CL is the smallest of :data:`BWD_CLUSTER_SIZES` (at most the group's
+    rows) whose CTAs take at most :data:`BWD_SMEM_SHARED` (three CTAs an
+    SM, so that one's copies overlap another's arithmetic), else the
+    smallest whose CTAs fit at all.
+    """
+    rows, Cg = (C // G) * H, C // G
+    for limit in (BWD_SMEM_SHARED, SMEM_PER_CTA):
+        for size in BWD_CLUSTER_SIZES:
+            CL = min(size, rows)
+            R = -(-rows // CL)
+            if _bwd_cluster_smem(R, W, Cg) <= limit:
+                return ('cluster', CL, R)
+    return ('l2',)
+
+
+# the l2 route's launch: L2_CTAS_PER_SM CTAs an SM (264 on an H100), items
+# of at least L2_ITEM elements of one channel plane (a multiple of 4). A CTA
+# sums its next item before it waits for its current one's group, so two
+# items a CTA lie between their two reads: 264 * 2 * 8192 * 8 bytes = 35 MB
+# of x and dy, within the 50 MB L2 (on an H100 items of 4096, 17 MB in
+# flight, took 5.5% longer at segtrain's first layer, items of 16384, 69 MB,
+# more than the L2 holds, 3.3% longer: PERF.md)
+L2_CTAS_PER_SM = 2
+L2_ITEM = 8192
+
+
+def _l2_plan(N: int, C: int, H: int, W: int, G: int,
+             capacity: int) -> tuple[int, int, int, int]:
+    """
+    The l2 route's launch on a card that takes a cooperative grid of
+    `capacity` CTAs: (per, S, K, grid), items of `per` elements, S items a
+    plane, works of K items, `grid` CTAs. A group's works must all be in
+    flight at once: per grows past L2_ITEM where a group has more than
+    `capacity` items of L2_ITEM, and K where even a plane an item leaves
+    more items than that (groups of more channels than CTAs).
+    """
+    Cg, HW = C // G, H * W
+    per = max(L2_ITEM, -(-HW // max(1, capacity // Cg)))
+    per = -(-per // 4) * 4
+    S = -(-HW // per)
+    K = -(-Cg * S // capacity)
+    return per, S, K, min(capacity, N * G * -(-Cg * S // K))
+
+
+@functools.lru_cache(maxsize=None)
+def _l2_capacity(device: int) -> int:
+    """The l2 route's grid on the card: L2_CTAS_PER_SM an SM, or fewer
+    where the kernel source's occupancy query (the largest cooperative
+    grid) says so."""
+    blocks = ctypes.c_int()
+    err = _lib().groupnorm_bwd_l2_capacity(device, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f'groupnorm_bwd_l2_capacity failed: cudaError {err}')
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return min(blocks.value, L2_CTAS_PER_SM * sms)
+
+
+# the l2 route's flags, one int32 an item, kept per (device, stream) and
+# never reset: each launch writes and waits for a new epoch. A replay of a
+# captured launch would find its own epoch already written and read the
+# last replay's partials, so _launch_backward refuses to be captured.
+_FLAGS: dict = {}
+
+
+def _flags(device: torch.device, stream: int, items: int) -> tuple[torch.Tensor, int]:
+    """The flag buffer of (device, stream), at least `items` long, and the
+    epoch of the next launch (1, 2, ...; a new buffer is zero)."""
+    key = (device.index, stream)
+    buf, epoch = _FLAGS.get(key, (None, 0))
+    if buf is None or buf.numel() < items:
+        buf, epoch = torch.zeros(max(items, 1 << 16), dtype=torch.int32, device=device), 0
+    epoch = epoch % 0x7ffffffe + 1
+    _FLAGS[key] = (buf, epoch)
+    return buf, epoch
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     """The kernel library with the argument types of its entry points
@@ -160,10 +264,16 @@ def _lib():
         + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.groupnorm_cluster_occupancy.argtypes = [ctypes.c_int] * 7 \
         + [ctypes.POINTER(ctypes.c_int)] * 3
-    lib.groupnorm_backward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+    lib.groupnorm_backward_cluster.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
+    lib.groupnorm_bwd_cluster_occupancy.argtypes = [ctypes.c_int] * 6 \
+        + [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.groupnorm_backward_l2.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] \
+        + [ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.groupnorm_bwd_l2_capacity.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     for fn in (lib.groupnorm_forward, lib.groupnorm_cluster, lib.groupnorm_cluster_occupancy,
-               lib.groupnorm_backward):
+               lib.groupnorm_backward_cluster, lib.groupnorm_bwd_cluster_occupancy,
+               lib.groupnorm_backward_l2, lib.groupnorm_bwd_l2_capacity):
         fn.restype = ctypes.c_int
     return lib
 
@@ -185,6 +295,20 @@ def cluster_occupancy(C: int, H: int, W: int, G: int, CL: int, dtype: torch.dtyp
     if err != 0:
         raise RuntimeError(f'group_norm cluster design refused for C={C} H={H} W={W} G={G} '
                            f'CL={CL} {dtype}: cudaError {err}')
+    return smem.value, threads.value, clusters.value
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_cluster_occupancy(C: int, H: int, W: int, G: int, CL: int,
+                          device: int = 0) -> tuple[int, int, int]:
+    """:func:`cluster_occupancy` of the backward's cluster route (fp32).
+    Needs a card."""
+    smem, threads, clusters = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _lib().groupnorm_bwd_cluster_occupancy(C, H, W, G, CL, device, ctypes.byref(smem),
+                                                 ctypes.byref(threads), ctypes.byref(clusters))
+    if err != 0:
+        raise RuntimeError(f'group_norm backward cluster route refused for C={C} H={H} W={W} '
+                           f'G={G} CL={CL}: cudaError {err}')
     return smem.value, threads.value, clusters.value
 
 
@@ -229,27 +353,55 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_group
     return y
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t`, or a copy of it where its data does not start on 16 bytes (a
+    view into a larger storage): the backward loads 16 bytes at a time."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch_backward(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor, num_groups: int,
-                     seq_len: Optional[torch.Tensor], stats: torch.Tensor) -> tuple:
-    """Launches the two backward kernels of ``csrc/groupnorm.cu`` on
-    float32 CUDA tensors and counts them: (dx, d weight, d bias), the
-    affine's gradients summed over the samples with torch."""
+                     seq_len: Optional[torch.Tensor], stats: torch.Tensor,
+                     design: tuple) -> tuple:
+    """Launches ``design`` of the backward kernel of ``csrc/groupnorm.cu``
+    on float32 CUDA tensors and counts the launch; raises if it is refused,
+    and for the l2 route while the stream is captured into a CUDA graph (its
+    flags hold an epoch a launch, which a replay would repeat): (dx,
+    d weight, d bias), the affine's gradients summed over the samples and
+    the kernel's partials with torch."""
     N, C, H, W = x.shape
     G = num_groups
+    x, dy = _aligned(x), _aligned(dy)
     dx = torch.empty_like(x)
-    S1 = blocks_per_group(N * C, H)
-    S2 = blocks_per_group(N * G, (C // G) * H)
-    partial = torch.empty((N, C, S1, 2), dtype=torch.float32, device=x.device)
     dev = x.device.index
     w32 = weight.to(torch.float32).contiguous()
-    err = _lib().groupnorm_backward(x.data_ptr(), dy.data_ptr(),
-                                    None if seq_len is None else seq_len.data_ptr(),
-                                    stats.data_ptr(), w32.data_ptr(), partial.data_ptr(),
-                                    dx.data_ptr(), N, C, H, W, G, S1, S2, dev, raw_stream(dev))
+    lens = None if seq_len is None else seq_len.data_ptr()
+    stream = raw_stream(dev)
+    if design[0] == 'cluster':
+        CL = design[1]
+        if bwd_cluster_occupancy(C, H, W, G, CL, dev)[2] == 0:
+            raise RuntimeError(f'group_norm backward: the card cannot hold a cluster of {CL} CTAs '
+                               f'for groups of {(N, C, H, W)} / {G}')
+        partial = torch.empty((N, G, CL, C // G, 2), dtype=torch.float32, device=x.device)
+        err = _lib().groupnorm_backward_cluster(x.data_ptr(), dy.data_ptr(), lens, stats.data_ptr(),
+                                                w32.data_ptr(), partial.data_ptr(), dx.data_ptr(),
+                                                N, C, H, W, G, CL, dev, stream)
+        sums = partial.sum(dim=(0, 2)).reshape(C, 2)
+    else:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError('the GroupNorm backward\'s l2 route cannot be captured in a CUDA '
+                               'graph: a replay would reuse its launch\'s flag epoch')
+        per, S, K, grid = _l2_plan(N, C, H, W, G, _l2_capacity(dev))
+        partial = torch.empty((N, C, S, 2), dtype=torch.float32, device=x.device)
+        flags, epoch = _flags(x.device, stream, N * C * S)
+        err = _lib().groupnorm_backward_l2(x.data_ptr(), dy.data_ptr(), lens, stats.data_ptr(),
+                                           w32.data_ptr(), partial.data_ptr(), flags.data_ptr(),
+                                           epoch, dx.data_ptr(), N, C, H, W, G, per, K, grid,
+                                           dev, stream)
+        sums = partial.sum(dim=(0, 2))
     if err != 0:
-        raise RuntimeError(f'group_norm backward kernel launch failed: cudaError {err}')
-    group_norm.backward_launches += 2
-    sums = partial.sum(dim=(0, 2))
+        raise RuntimeError(f'group_norm backward {design[0]} kernel launch failed: cudaError {err}')
+    group_norm.backward_launches += 1
+    group_norm.backward_design_launches[design[0]] += 1
     return dx, sums[:, 0], sums[:, 1]
 
 
@@ -257,10 +409,9 @@ class GroupNormFunction(torch.autograd.Function):
     """
     :func:`group_norm` with a gradient, on float32 CUDA tensors: the
     forward kernel also writes each (sample, group)'s mean and rstd, the
-    backward kernels of ``csrc/groupnorm.cu`` give dx over the valid
-    columns (zero at the pad columns, which the forward zeroes) and the
-    per-(sample, channel) sums of the affine's gradients, which torch sums
-    over the samples.
+    backward kernel of ``csrc/groupnorm.cu`` (one launch) gives dx over the
+    valid columns (zero at the pad columns, which the forward zeroes) and
+    partial sums of the affine's gradients, which torch sums.
     """
 
     @staticmethod
@@ -276,8 +427,10 @@ class GroupNormFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, weight, seq_len, stats = ctx.saved_tensors
+        N, C, H, W = x.shape
         dx, d_weight, d_bias = _launch_backward(x, dy.contiguous(), weight, ctx.num_groups,
-                                                seq_len, stats)
+                                                seq_len, stats,
+                                                _backward_design(N, C, H, W, ctx.num_groups))
         return dx, d_weight.to(weight.dtype), d_bias.to(weight.dtype), None, None, None
 
 
@@ -334,3 +487,4 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 group_norm.launches = 0
 group_norm.design_launches = {'cluster': 0, 'stream': 0}
 group_norm.backward_launches = 0
+group_norm.backward_design_launches = {'cluster': 0, 'l2': 0}

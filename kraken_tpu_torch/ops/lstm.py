@@ -45,9 +45,14 @@ function in fp32 and the port is the more precise one in bf16.
 Training: where grad mode is on and ``gates_x``, ``w_hh`` or the peephole
 weights require a gradient, :func:`lstm_recurrence` on a CUDA tensor runs
 :class:`LSTMRecurrence`: the forward kernel in its saving mode and the
-backward kernel of ``csrc/lstm.cu`` (counter
-``lstm_recurrence.backward_launches``, with the peephole flag also
-``lstm_recurrence.backward_peephole_launches``), float32 only. On a CPU
+backward kernel of ``csrc/lstm.cu`` in the design :func:`_backward_design`
+picks from the shapes: ``cluster`` (w_hh in a cluster's shared memory,
+partial sums of dh_carry exchanged through distributed shared memory; the
+forward cluster design's hidden sizes) or ``stream`` (w_hh from L2 every
+step, up to H = 1024). Counters ``lstm_recurrence.backward_launches``, by
+design ``lstm_recurrence.backward_design_launches``, with the peephole
+flag also ``lstm_recurrence.backward_peephole_launches``; float32 only.
+On a CPU
 tensor the plain version's torch autograd is the gradient; the backward
 kernel is held to it on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py`` phase 22).
@@ -187,6 +192,47 @@ def _design(B: int, T: int, D: int, H: int) -> tuple:
     return ('stream',)
 
 
+def _backward_smem(H: int, C: int, R: int) -> int:
+    """Bytes of shared memory one CTA of the backward's cluster design
+    takes: the forward's w_hh slice, the partial sums of dh_carry of its
+    units received from each of the C CTAs and its own dgates (each R rows,
+    double-buffered), all fp32, and one mbarrier per receive buffer."""
+    units, hp, rg = -(-H // C), _padded_h(H), R // 4
+    return 16 * (units * hp + 2 * C * units * rg + 2 * 4 * rg * units) + 16
+
+
+def _backward_slots(H: int, C: int, R: int) -> int:
+    """(unit, row) cells or (column, group of 4 rows) partials a step, the
+    larger: what the backward's CTA spreads over its threads."""
+    return max(-(-H // C) * R, H * (R // 4))
+
+
+@functools.lru_cache(maxsize=256)
+def _backward_design(B: int, T: int, D: int, H: int) -> tuple:
+    """
+    The backward kernel's design for a call, from its shapes alone, by the
+    forward's rule (:func:`_design`) with the backward's shared memory:
+    ``('cluster', C, R)`` holds w_hh in a cluster of C CTAs per tile of R
+    rows and direction and exchanges partial sums of dh_carry;
+    ``('stream',)`` reads w_hh from L2 every step (``lstm_backward_kernel``,
+    hidden sizes whose slice no cluster holds, and those below 8, where a
+    CTA of the cluster would own no unit).
+    """
+    for C in CLUSTER_SIZES:
+        if C > H:
+            break
+        largest = None
+        R = 4
+        while _backward_slots(H, C, R) <= MAX_SLOTS and _backward_smem(H, C, R) <= SMEM_PER_CTA:
+            if -(-B // R) * D <= WAVE_CLUSTERS[C]:
+                return ('cluster', C, R)
+            largest = R
+            R += 4
+        if largest is not None:
+            return ('cluster', C, largest)
+    return ('stream',)
+
+
 def cluster_occupancy(H: int, C: int, R: int, device: int = 0) -> tuple[int, int, int]:
     """
     What the cluster design asks of the card at (H, C, R), as the kernel
@@ -203,6 +249,21 @@ def cluster_occupancy(H: int, C: int, R: int, device: int = 0) -> tuple[int, int
     err = fn(H, C, R, device, ctypes.byref(smem), ctypes.byref(threads), ctypes.byref(clusters))
     if err != 0:
         raise RuntimeError(f'lstm_cluster_occupancy failed: cudaError {err}')
+    return smem.value, threads.value, clusters.value
+
+
+def backward_cluster_occupancy(H: int, C: int, R: int, device: int = 0) -> tuple[int, int, int]:
+    """:func:`cluster_occupancy` of the backward's cluster design (what
+    ``csrc/lstm.cu:backward_cluster_shape`` computes, and
+    ``cudaOccupancyMaxActiveClusters`` of its kernel). Needs a card."""
+    from kraken_tpu_torch.ops.build import load_library
+    fn = load_library('lstm').lstm_backward_cluster_occupancy
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    smem, threads, clusters = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = fn(H, C, R, device, ctypes.byref(smem), ctypes.byref(threads), ctypes.byref(clusters))
+    if err != 0:
+        raise RuntimeError(f'lstm_backward_cluster_occupancy failed: cudaError {err}')
     return smem.value, threads.value, clusters.value
 
 
@@ -253,28 +314,39 @@ def _launch(gates_x: torch.Tensor, w_hh: torch.Tensor, mask: torch.Tensor,
 
 def _launch_backward(dout: torch.Tensor, gates: torch.Tensor, cs: torch.Tensor,
                      w_hh: torch.Tensor, mask: torch.Tensor, reverse: bool,
-                     peephole: Optional[torch.Tensor]) -> torch.Tensor:
-    """Launches the backward kernel of ``csrc/lstm.cu`` on the saving
-    forward's buffers and counts the launch: (B, T, D, 4H) float32, the
-    gradient of the gate pre-activations."""
+                     peephole: Optional[torch.Tensor], design: tuple) -> torch.Tensor:
+    """Launches ``design`` of the backward kernel of ``csrc/lstm.cu`` on the
+    saving forward's buffers and counts the launch; raises if it is
+    refused: (B, T, D, 4H) float32, the gradient of the gate
+    pre-activations."""
     B, T, D, G = gates.shape
     H = G // 4
     dgates = torch.empty_like(gates)
     if B == 0 or T == 0:
         return dgates.zero_()
     from kraken_tpu_torch.ops.build import load_library
-    fn = load_library('lstm').lstm_recurrence_backward
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = load_library('lstm')
     dev = gates.device.index
+    stream = torch.cuda.current_stream(gates.device).cuda_stream
     w32 = w_hh.to(torch.float32).contiguous()
     peep = None if peephole is None else peephole.to(torch.float32).contiguous()
-    err = fn(dout.data_ptr(), gates.data_ptr(), cs.data_ptr(), w32.data_ptr(), mask.data_ptr(),
-             None if peep is None else peep.data_ptr(), dgates.data_ptr(), B, T, D, H,
-             int(bool(reverse)), dev, torch.cuda.current_stream(gates.device).cuda_stream)
+    args = (dout.data_ptr(), gates.data_ptr(), cs.data_ptr(), w32.data_ptr(), mask.data_ptr(),
+            None if peep is None else peep.data_ptr(), dgates.data_ptr(), B, T, D, H)
+    if design[0] == 'cluster':
+        fn = lib.lstm_recurrence_backward_cluster
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = fn(*args, design[1], design[2], int(bool(reverse)), dev, stream)
+    else:
+        fn = lib.lstm_recurrence_backward
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = fn(*args, int(bool(reverse)), dev, stream)
     if err != 0:
-        raise RuntimeError(f'lstm_recurrence backward kernel launch failed: cudaError {err}')
+        raise RuntimeError(f'lstm_recurrence backward {design[0]} kernel launch failed: '
+                           f'cudaError {err}')
     lstm_recurrence.backward_launches += 1
+    lstm_recurrence.backward_design_launches[design[0]] += 1
     if peep is not None:
         lstm_recurrence.backward_peephole_launches += 1
     return dgates
@@ -319,8 +391,9 @@ class LSTMRecurrence(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         w_hh, mask, peephole, gates, cs, hs = ctx.saved_tensors
+        B, T, D, G = gates.shape
         dgates = _launch_backward(dout.to(torch.float32).contiguous(), gates, cs, w_hh, mask,
-                                  ctx.reverse, peephole)
+                                  ctx.reverse, peephole, _backward_design(B, T, D, G // 4))
         d_w_hh = torch.einsum('btdg,btdh->dgh', dgates, hs) if ctx.needs_input_grad[1] else None
         d_peep = None
         if peephole is not None and ctx.needs_input_grad[4]:
@@ -389,4 +462,5 @@ lstm_recurrence.launches = 0
 lstm_recurrence.design_launches = {'cluster': 0, 'stream': 0}
 lstm_recurrence.peephole_launches = 0
 lstm_recurrence.backward_launches = 0
+lstm_recurrence.backward_design_launches = {'cluster': 0, 'stream': 0}
 lstm_recurrence.backward_peephole_launches = 0

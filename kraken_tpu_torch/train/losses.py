@@ -10,7 +10,7 @@ train/blla.py:277-294). All of them are torch ops.
 CTC is ``F.ctc_loss(reduction='sum', zero_infinity=True)`` on the log
 softmax, the reference's ``torch.nn.CTCLoss``. On lines whose labels fit
 their frames it equals the JAX package's ``optax.ctc_loss`` sum (its loss
-and gradients, ``tests/test_torch_train_losses.py``). On a line whose labels
+and gradients, ``tests/test_torch_train_parity.py``). On a line whose labels
 cannot fit (more frames needed than it has, repeats counting a blank
 between) torch's loss is infinite and zeroed, as the documented
 zero_infinity semantics ask; optax returns about 1e5 there (its

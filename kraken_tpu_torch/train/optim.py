@@ -26,6 +26,13 @@ transformation step for step:
 
 Reduce-on-plateau multiplies the update (``rop_scale``), as the JAX trainer
 does, so the optimizer's moments carry over.
+
+One difference, a fault of the reference that the port repairs: with
+``1cycle`` and at most 3 optimizer steps in all, ``int(0.3·total)`` is 0,
+and optax interpolates over that empty interval, so every rate of the JAX
+package is NaN. :func:`_onecycle` skips the empty interval: for a total of
+3 the rates are 1e-3, 7.5e-4, 2.5e-4, then 4e-9 at lr 1e-3
+(``tests/test_torch_train_parity.py``, ROADMAP.md queue 3).
 """
 import math
 from typing import Callable, Optional, Sequence

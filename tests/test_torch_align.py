@@ -20,6 +20,7 @@ The port's forced alignment (kraken_tpu_torch.align, .ops.trellis and
 Segmentation (with its transcriptions) for the card's machine, which has
 no lxml; write it anew with ``python -m tests.test_torch_align``.
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import dataclasses
 import json
 import logging

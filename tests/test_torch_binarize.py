@@ -19,6 +19,7 @@ wrapper runs its plain version.
   1e-5 of the threshold (counted); the JAX test_ops cases themselves (over
   99% agreement with the host nlbin, the batch of two pages).
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -44,6 +44,7 @@ changed).
 
 Write the golden anew with ``JAX_PLATFORMS=cpu python -m tests.test_torch_cli``.
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import contextlib
 import json
 import re

@@ -10,6 +10,7 @@ training key is stored and reaches its consumer (the optimizer, the
 schedule, the data and task modules, the trainer) with no warning;
 ``devices`` warns that nothing reads it until ROADMAP.md queue 1 item 10.
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import logging
 from pathlib import Path
 

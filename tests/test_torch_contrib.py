@@ -20,6 +20,7 @@ run through both packages' scripts on the same inputs give
 The scripts that run a model default to ``--device cuda`` and stop with a
 usage error without a card; here they run with ``-d cpu``.
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import importlib
 import shutil
 from pathlib import Path

@@ -8,6 +8,9 @@ torch is installed, without the suite's conftest:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
+# first: the thread share under xdist; by its own name, since the card's machine runs this
+# file alone (--noconftest), where `tests` may name another package
+import test_torch_threads  # noqa: F401
 import importlib.util
 from pathlib import Path
 
@@ -16,8 +19,8 @@ import pytest
 import torch
 
 from kraken_tpu_torch.nn.layers import TransposedSummarizingRNN
-from kraken_tpu_torch.ops.lstm import (SMEM_PER_CTA, _cluster_smem, _design, _launch,
-                                       cluster_occupancy, lstm_recurrence,
+from kraken_tpu_torch.ops.lstm import (SMEM_PER_CTA, _backward_design, _cluster_smem, _design,
+                                       _launch, cluster_occupancy, lstm_recurrence,
                                        lstm_recurrence_reference)
 from kraken_tpu_torch.vgsl import VGSLModel
 
@@ -1108,11 +1111,14 @@ def test_lstm_backward_matches_plain_autograd(cuda_device, B, T, D, H, lens, rev
     upstream = torch.from_numpy(rng.randn(B, T, D, H).astype(np.float32)).to(cuda_device)
     before = (lstm_recurrence.launches, lstm_recurrence.backward_launches,
               lstm_recurrence.backward_peephole_launches)
+    route = _backward_design(B, T, D, H)[0]
+    before_route = lstm_recurrence.backward_design_launches[route]
     out, grads = _lstm_grads(lstm_recurrence, gates, w_hh, mask, reverse, peep, upstream)
     torch.cuda.synchronize()
     assert (lstm_recurrence.launches, lstm_recurrence.backward_launches,
             lstm_recurrence.backward_peephole_launches) == (
         before[0] + 1, before[1] + 1, before[2] + int(peephole))
+    assert lstm_recurrence.backward_design_launches[route] == before_route + 1
     ref_out, ref_grads = _lstm_grads(lstm_recurrence_reference, gates, w_hh, mask, reverse, peep,
                                      upstream)
     assert (out - ref_out).abs().max().item() <= 1e-5
@@ -1120,6 +1126,59 @@ def test_lstm_backward_matches_plain_autograd(cuda_device, B, T, D, H, lens, rev
         assert got.shape == want.shape and _close(got, want, 1e-5)
     # masked steps take no gradient
     assert not grads[0][~mask].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('route', ['cluster', 'stream'])
+@pytest.mark.parametrize('peephole', [False, True])
+@pytest.mark.parametrize('B,T,D,H,lens', [
+    (16, 40, 2, 200, None),               # the flagship's training batch
+    (13, 30, 2, 200, [30, 1, 0] + [25] * 10),
+    (9, 12, 2, 460, [12, 7, 1, 12, 3, 12, 12, 5, 2]),   # the largest H a cluster holds
+    (20, 9, 1, 64, [9, 3, 0, 1] * 5),     # five tiles of 4
+])
+def test_lstm_backward_routes_match_plain_autograd(cuda_device, monkeypatch, B, T, D, H, lens,
+                                                   peephole, route):
+    """Each backward route, forced, against torch autograd through the
+    plain recurrence (fp32, 1e-5 of the largest magnitude), counted by
+    route; masked steps take no gradient."""
+    from kraken_tpu_torch.ops import lstm
+    if route == 'stream':
+        monkeypatch.setattr(lstm, '_backward_design', lambda *a: ('stream',))
+    else:
+        assert lstm._backward_design(B, T, D, H)[0] == 'cluster'
+    rng = np.random.RandomState(B + T + H)
+    gates = torch.from_numpy(rng.randn(B, T, D, 4 * H).astype(np.float32)).to(cuda_device)
+    w_hh = torch.from_numpy((rng.randn(D, 4 * H, H) / np.sqrt(H)).astype(np.float32)).to(cuda_device)
+    peep = (torch.from_numpy((0.3 * rng.randn(D, 3, H)).astype(np.float32)).to(cuda_device)
+            if peephole else None)
+    lens = lens or [T] * B
+    mask = (torch.arange(T)[None, :] < torch.tensor(lens)[:, None]).to(cuda_device)
+    upstream = torch.from_numpy(rng.randn(B, T, D, H).astype(np.float32)).to(cuda_device)
+    before = lstm_recurrence.backward_design_launches[route]
+    _, grads = _lstm_grads(lstm_recurrence, gates, w_hh, mask, False, peep, upstream)
+    torch.cuda.synchronize()
+    assert lstm_recurrence.backward_design_launches[route] == before + 1
+    _, ref_grads = _lstm_grads(lstm_recurrence_reference, gates, w_hh, mask, False, peep, upstream)
+    for got, want in zip(grads, ref_grads):
+        assert _close(got, want, 1e-5)
+    assert not grads[0][~mask].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(16, 128, 2, 200), (64, 128, 2, 200), (64, 1024, 2, 100),
+                                   (16, 100, 2, 400), (16, 100, 2, 460)])
+def test_lstm_backward_cluster_occupancy_matches_its_mirror(cuda_device, shape):
+    """The card holds the backward's cluster pick at the training shapes,
+    all its clusters in one wave where the chooser says so, and the source
+    asks for the shared memory the Python mirror counts."""
+    from kraken_tpu_torch.ops.lstm import WAVE_CLUSTERS, _backward_smem, backward_cluster_occupancy
+    B, T, D, H = shape
+    _, C, R = _backward_design(*shape)
+    smem, threads, clusters = backward_cluster_occupancy(H, C, R)
+    assert smem == _backward_smem(H, C, R) <= SMEM_PER_CTA
+    assert threads % 32 == 0 and threads <= 512
+    assert clusters >= min(WAVE_CLUSTERS[C], -(-B // R) * D)
 
 
 @pytest.mark.cuda
@@ -1131,22 +1190,27 @@ def test_lstm_training_forward_refuses_bf16(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('route', ['chosen', 'l2'])
 @pytest.mark.parametrize('forced', [None, 'stream'])
 @pytest.mark.parametrize('shape, groups, lens', [
     ((1, 32, 256, 177), 8, None),
     ((3, 16, 37, 61), 4, [61, 30, 1]),
     ((2, 96, 20, 33), 16, [5, 40]),
     ((2, 64, 30, 77), 32, [77, 50]),
+    ((3, 8, 7, 5), 2, [5, 1, 3]),         # planes of 35 elements: items straddle 16-byte lines
 ])
 def test_group_norm_backward_matches_plain_autograd(cuda_device, monkeypatch, shape, groups, lens,
-                                                    forced):
-    """The forward's statistics (either design) and the two backward
-    launches against torch autograd through the plain version in float64
-    on the same inputs: dx, d weight and d bias within 1e-5 of the largest
-    magnitude, dx zero at the pad columns."""
+                                                    forced, route):
+    """The forward's statistics (either design) and the backward launch
+    (the route the shapes pick, and the l2 route forced) against torch
+    autograd through the plain version in float64 on the same inputs: dx,
+    d weight and d bias within 1e-5 of the largest magnitude, dx zero at
+    the pad columns."""
     from kraken_tpu_torch.ops import groupnorm
     if forced:
         monkeypatch.setattr(groupnorm, '_design', lambda *a: ('stream',))
+    if route == 'l2':
+        monkeypatch.setattr(groupnorm, '_backward_design', lambda *a: ('l2',))
     x, w, b = _group_norm_inputs(shape, torch.float32, cuda_device)
     seq = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda_device)
     dy = torch.from_numpy(np.random.RandomState(7).randn(*shape).astype(np.float32)).to(cuda_device)
@@ -1157,16 +1221,89 @@ def test_group_norm_backward_matches_plain_autograd(cuda_device, monkeypatch, sh
         (y * dy.to(dtype)).sum().backward()
         return [t.grad for t in leaves]
 
-    before = groupnorm.group_norm.backward_launches
+    taken = groupnorm._backward_design(*shape, groups)[0]
+    before = (groupnorm.group_norm.backward_launches,
+              groupnorm.group_norm.backward_design_launches[taken])
     got = grads(groupnorm.group_norm, torch.float32)
     torch.cuda.synchronize()
-    assert groupnorm.group_norm.backward_launches == before + 2
+    assert (groupnorm.group_norm.backward_launches,
+            groupnorm.group_norm.backward_design_launches[taken]) == (before[0] + 1, before[1] + 1)
     want = grads(groupnorm.group_norm_reference, torch.float64)
     for g, r in zip(got, want):
         assert _close(g.double(), r, 1e-5)
     if lens is not None:
         for n, L in enumerate(lens):
             assert not got[0][n, :, :, min(L, shape[3]):].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape, lens, route', [
+    ((1, 64, 900, 623), None, 'l2'), ((1, 256, 450, 312), None, 'l2'),  # segtrain at 1800
+    ((16, 128, 60, 512), 'ragged', 'cluster'), ((16, 128, 60, 512), 'ragged', 'l2'),  # `tpu`
+    ((16, 128, 15, 128), 'ragged', 'cluster'), ((16, 128, 15, 128), 'ragged', 'l2'),
+])
+def test_group_norm_backward_at_the_training_layers(cuda_device, monkeypatch, shape, lens, route):
+    """Each route at the training layers it serves, and the other where the
+    cluster holds the layer: dx, d weight and d bias within 1e-4 of float64
+    autograd's largest magnitude (chip_smoke.py's GN_BWD_RTOL), dx zero at
+    every pad column, one launch."""
+    from kraken_tpu_torch.ops import groupnorm
+    chosen = groupnorm._backward_design(*shape, 32)
+    assert route == 'l2' or chosen[0] == 'cluster'
+    monkeypatch.setattr(groupnorm, '_backward_design', lambda *a: chosen if route == chosen[0]
+                        else ('l2',))
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = torch.relu(torch.randn(*shape, generator=gen)).to(cuda_device)
+    w = (1 + 0.1 * torch.randn(shape[1], generator=gen)).to(cuda_device)
+    b = (0.1 * torch.randn(shape[1], generator=gen)).to(cuda_device)
+    dy = torch.randn(*shape, generator=gen).to(cuda_device)
+    seq = None
+    if lens:
+        seq = torch.randint(1, shape[3] + 1, (shape[0],), generator=gen, dtype=torch.int32)
+        seq[0] = shape[3]
+        seq = seq.to(cuda_device)
+
+    def grads(fn, dtype):
+        leaves = [t.detach().to(dtype).requires_grad_(True) for t in (x, w, b)]
+        (fn(*leaves, 32, 1e-5, seq) * dy.to(dtype)).sum().backward()
+        return [t.grad for t in leaves]
+    before = groupnorm.group_norm.backward_design_launches[route]
+    got = grads(groupnorm.group_norm, torch.float32)
+    torch.cuda.synchronize()
+    assert groupnorm.group_norm.backward_design_launches[route] == before + 1
+    for g, r in zip(got, grads(groupnorm.group_norm_reference, torch.float64)):
+        assert _close(g.double(), r, SMOKE.GN_BWD_RTOL)
+    if seq is not None:
+        for n, L in enumerate(seq.tolist()):
+            assert not got[0][n, :, :, L:].any()
+
+
+@pytest.mark.cuda
+def test_group_norm_backward_l2_route_refuses_graph_capture(cuda_device, monkeypatch):
+    """The l2 route's flags take a new epoch a launch, which a CUDA graph's
+    replay would repeat: a backward captured into a graph raises (and takes
+    no other route), and the route still runs uncaptured afterwards."""
+    from kraken_tpu_torch.ops import groupnorm
+    monkeypatch.setattr(groupnorm, '_backward_design', lambda *a: ('l2',))
+    shape = (2, 16, 9, 21)
+    x, w, b = _group_norm_inputs(shape, torch.float32, cuda_device)
+    dy = torch.from_numpy(np.random.RandomState(5).randn(*shape).astype(np.float32)).to(cuda_device)
+    seq = torch.tensor([21, 12], dtype=torch.int32, device=cuda_device)
+
+    def step():
+        xl = x.detach().requires_grad_(True)
+        (groupnorm.group_norm(xl, w, b, 4, 1e-5, seq) * dy).sum().backward()
+        return xl.grad
+    want = step()  # uncaptured first: the occupancy queries are cached before the capture
+    torch.cuda.synchronize()
+    before = dict(groupnorm.group_norm.backward_design_launches)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match='CUDA graph'):
+        with torch.cuda.graph(graph):
+            step()
+    torch.cuda.synchronize()
+    assert groupnorm.group_norm.backward_design_launches == before
+    assert torch.equal(step(), want)
 
 
 @pytest.mark.cuda

@@ -19,6 +19,7 @@ CPU, on the same inputs:
 - augmentation: the augmenters replay the JAX augmenters' draws from the
   same seed (both take a seed; their outputs are equal).
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import json
 from pathlib import Path
 

@@ -3,6 +3,7 @@ The port (kraken_tpu_torch) stands alone: it imports neither JAX nor the
 kraken_tpu package, and its entry points run on the card unless the caller
 asks for the CPU (no silent fallback when there is no card).
 """
+from tests.test_torch_threads import subprocess_env  # first: the thread share under xdist
 import re
 import subprocess
 import sys
@@ -152,7 +153,7 @@ def test_port_runs_without_jax_or_kraken_tpu(resources):
     checkpoints) on the CPU and never imports JAX or kraken_tpu (the test
     process itself has JAX)."""
     out = subprocess.run([sys.executable, '-c', _CHILD, str(resources)], cwd=REPO,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=300, env=subprocess_env())
     assert out.returncode == 0, out.stderr[-3000:]
     assert 'FORBIDDEN []' in out.stdout, out.stdout
 

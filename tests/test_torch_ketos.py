@@ -30,6 +30,7 @@ on the CPU (``-d cpu``; the port's default device is the card):
   best model both packages load, ``pretrain`` is a usage error naming its
   ROADMAP item, and ``setup('fit')`` builds a differentiable ``loss_fn``.
 """
+from tests.test_torch_threads import subprocess_env  # first: the thread share under xdist
 import json
 from pathlib import Path
 
@@ -448,6 +449,7 @@ def test_ketos_runs_without_lxml(tmp_path):
     import subprocess
     import sys
     out = subprocess.run([sys.executable, '-c', _NO_LXML, str(MERGE), str(tmp_path / 'ds.arrow')],
-                         cwd=RESOURCES.parent.parent, capture_output=True, text=True, timeout=300)
+                         cwd=RESOURCES.parent.parent, capture_output=True, text=True, timeout=300,
+                         env=subprocess_env())
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.count('=== report') == 2 and 'LXML []' in out.stdout

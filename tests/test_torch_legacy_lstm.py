@@ -20,6 +20,7 @@ port against the JAX package on the CPU, fp32, atol 1e-5:
 Write the fixture model and its golden anew with
 ``JAX_PLATFORMS=cpu python -m tests.test_torch_legacy_lstm``.
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import hashlib
 import json
 import warnings

@@ -4,6 +4,7 @@ package: the Pallas kernel in interpret mode and the lax.scan path, on the
 same numpy-seeded inputs; the CPU wrapper's plain path; the CUDA kernel
 against its plain version where a card is present.
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import numpy as np
 import pytest
 import jax.numpy as jnp

@@ -17,6 +17,7 @@ the port to the JAX function on the same input as well.
 - the legacy page's text: ``bw.png`` through the port's segmenter and
   recognizer on the CPU in fp32 equals ``bw_page_golden.json``.
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import json
 
 import numpy as np

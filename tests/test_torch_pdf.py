@@ -13,6 +13,7 @@ of the port's output, and that output equals the JAX output. The CLI's
 ``-f pdf`` runs in :func:`test_cli_pdf_input` and in tests/test_torch_cli.py;
 the lazy page thunks through the port's ``process_pages`` here.
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import sys
 import types
 from pathlib import Path

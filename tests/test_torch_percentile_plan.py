@@ -38,6 +38,7 @@ where the source puts them, with the constants read back from the source
 (the ``cuda`` test ``test_percentile_geometry_matches_its_plan`` holds the
 source's own answer, ``percentile_geometry``, to the plan on the card).
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import bisect
 import importlib.util
 import re

@@ -12,6 +12,7 @@ segmenter and the overfit baseline recognizer, on two pages.
 - A page whose segmenter raises is skipped, or raises with
   ``raise_on_error``.
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import warnings
 from pathlib import Path
 

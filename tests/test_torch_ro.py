@@ -26,6 +26,7 @@ by the JAX package's ``ketos rotrain`` on the fixture page (CHANGES.md
 gives the commands). Write the golden anew with
 ``JAX_PLATFORMS=cpu python -m tests.test_torch_ro``.
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import json
 import warnings
 from pathlib import Path

@@ -4,6 +4,7 @@ golden records of the overfit model through rpred, mm_rpred and the batched
 engine, the port's safetensors reader, and records equal to the JAX
 engine's on the same lines and weights.
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import warnings
 from collections import defaultdict
 

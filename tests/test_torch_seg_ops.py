@@ -18,6 +18,7 @@ JAX functions they port, on the same numpy-seeded inputs (fp32):
 
 The CUDA kernels themselves run in tests/test_torch_cuda.py (GPU only).
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 from pathlib import Path
 
 import jax

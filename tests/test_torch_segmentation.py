@@ -25,6 +25,7 @@ what it calls) against the JAX package on the CPU:
 
 Write the golden anew with ``python -m tests.test_torch_segmentation``.
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import json
 import warnings
 from pathlib import Path

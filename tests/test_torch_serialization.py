@@ -10,6 +10,7 @@ reference pickles. The two outputs are equal after the normalisation of
 tests/test_torch_cli.py (generated ``_<uuid4>`` ids by order of first
 appearance, PageXML timestamps, the version string) and nothing else.
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import copy
 import pickle
 from collections import Counter

@@ -13,6 +13,7 @@ recognition forward holds both TF32 flags off while it runs (an fp32 run
 keeps parity after a caller's ``torch.set_float32_matmul_precision('high')``)
 and restores them after.
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 from pathlib import Path
 
 import jax.numpy as jnp

@@ -12,6 +12,7 @@ whose e = exp(x / T - m) is below 1 - 2^-20 has a posterior below the
 largest, 1 / s, in fp32; and its order-preserving ints sort as the floats
 they come from.
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import re
 from pathlib import Path
 

@@ -8,6 +8,7 @@ reduce-on-plateau, fractional ``freq``, the ``tpu`` preset, an oversized
 batch, a transformer spec), and checkpoints that load as models in both
 packages.
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import logging
 import warnings
 

@@ -5,6 +5,7 @@ cpu``): the JAX package's ``tests/test_cli.py`` cases of ``segtrain``,
 reading-order model added to a segmentation model), and checkpoints
 written by either package loading as models in the other.
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import json
 from pathlib import Path
 

@@ -20,6 +20,7 @@ numpy-seeded inputs and weights (``from_jax_state_dict``):
 - a tiny recognizer's, segmenter's and reading-order MLP's ``loss_fn``
   values and gradients against the JAX modules' (dropout off).
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -258,6 +259,28 @@ def test_schedules_match_optax():
             got = build_lr_schedule(cfg, 3)
             for count in range(20):
                 assert abs(got(count) - float(want(count))) <= 1e-6 * cfg.lrate, (schedule, count)
+
+
+@pytest.mark.parametrize('total, rates', [(1, [1e-3, 4e-9, 4e-9]), (2, [1e-3, 5.00002e-4, 4e-9]),
+                                          (3, [1e-3, 7.50001e-4, 2.50003e-4, 4e-9])])
+def test_onecycle_of_at_most_three_steps(total, rates):
+    """A fault of the reference that the port repairs: with at most 3
+    optimizer steps in all, ``int(0.3·total)`` is 0 and optax's
+    ``cosine_onecycle_schedule`` interpolates over an empty interval, so the
+    JAX package trains on a NaN rate. The port skips the empty interval:
+    the descent from the peak over the whole run, then peak/25/1e4."""
+    from kraken_tpu_torch.train.optim import build_lr_schedule
+    cfg = _Cfg(schedule='1cycle', lrate=1e-3, epochs=total)
+    got = build_lr_schedule(cfg, 1)
+    want = jax_optim.build_lr_schedule(cfg, 1)
+    for count, rate in enumerate(rates):
+        assert abs(got(count) - rate) <= 1e-6 * rate, (total, count, got(count))
+        assert np.isnan(float(want(count))), (total, count, float(want(count)))
+    # from four steps on, both are finite and agree
+    cfg = _Cfg(schedule='1cycle', lrate=1e-3, epochs=4)
+    got, want = build_lr_schedule(cfg, 1), jax_optim.build_lr_schedule(cfg, 1)
+    for count in range(6):
+        assert abs(got(count) - float(want(count))) <= 1e-6 * cfg.lrate
 
 
 # ------------------------------------------------------- modules' loss_fn

@@ -21,6 +21,7 @@ extension) in the port against the JAX package on the CPU, fp32:
 Write the fixture model and its golden anew with
 ``JAX_PLATFORMS=cpu python -m tests.test_torch_transformer``.
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import json
 from pathlib import Path
 

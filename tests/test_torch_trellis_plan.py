@@ -34,6 +34,7 @@ the source puts them, with the constants read back from the source (the
 ``cuda`` test ``test_trellis_geometry_matches_its_plan`` holds the source's
 own answer, ``trellis_geometry``, to the plan on the card).
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import importlib.util
 import re
 from pathlib import Path

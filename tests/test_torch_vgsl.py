@@ -5,6 +5,7 @@ numpy-seeded ragged batches give the same logits (fp32, atol 1e-5) and the
 same output lengths, layer by layer and for whole networks, with the JAX
 LSTM on its scan path and on its Pallas kernel (interpret mode).
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import numpy as np
 import pytest
 import jax

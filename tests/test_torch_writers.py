@@ -15,6 +15,7 @@ The port's model writers (kraken_tpu_torch.models.writers and
 - ``append`` and ``resize_output`` give the JAX package's specs, output
   shapes and parameter shapes, and keep the surviving rows bit for bit.
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 from pathlib import Path
 
 import numpy as np

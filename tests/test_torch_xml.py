@@ -5,6 +5,7 @@ baselines and as boxes, gives the same Segmentation as a dict through
 ``XMLPage(...).to_container()``, the same sorted lines and regions, and
 the invalid files raise the same exception types.
 """
+import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import dataclasses
 from pathlib import Path
 
