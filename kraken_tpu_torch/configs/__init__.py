@@ -27,8 +27,9 @@ argument); those keys warn as unknown.
 
 The training and data configs (the JAX package's ``TrainingDataConfig``,
 ``TrainingConfig`` and their recognition, segmentation and reading-order
-subclasses) keep the JAX keys and defaults and serve the training loops
-and evaluation of :mod:`kraken_tpu_torch.train` and ``ketos``. ``devices``
+subclasses, and the pretraining config) keep the JAX keys and defaults and
+serve the training loops and evaluation of :mod:`kraken_tpu_torch.train`,
+:mod:`kraken_tpu_torch.pretrain` and ``ketos``. ``devices``
 has no consumer until ROADMAP.md queue 1 item 10 (multi-GPU): given, it
 warns with the item's name and is dropped.
 """
@@ -39,7 +40,7 @@ __all__ = ['Config', 'RecognitionInferenceConfig', 'SegmentationInferenceConfig'
            'TrainingDataConfig', 'RecognitionTrainingDataConfig',
            'SegmentationTrainingDataConfig', 'TrainingConfig',
            'RecognitionTrainingConfig', 'SegmentationTrainingConfig',
-           'ReadingOrderTrainingConfig', 'RECOGNITION_SPEC_PRESETS']
+           'ReadingOrderTrainingConfig', 'PretrainingConfig', 'RECOGNITION_SPEC_PRESETS']
 
 logger = logging.getLogger(__name__)
 
@@ -328,4 +329,21 @@ class ReadingOrderTrainingConfig(TrainingConfig):
         self.level = kwargs.pop('level', 'baselines')
         self.reading_order = kwargs.pop('reading_order', 'line_implicit')
         kwargs.setdefault('lrate', 1e-3)
+        super().__init__(**kwargs)
+
+
+class PretrainingConfig(TrainingConfig):
+    """Wav2Vec2-style pretraining configuration: the default spec is the
+    flagship recognizer's backbone with a ``W`` block before its recurrent
+    stack (the block is stripped before training: the pretraining module
+    does the masking)."""
+
+    def __init__(self, **kwargs):
+        self.spec = kwargs.pop('spec', '[1,120,0,1 Cr3,13,32 Do0.1,2 Mp2,2 Cr3,13,32 Do0.1,2 Mp2,2 '
+                                       'Cr3,9,64 Do0.1,2 Mp2,2 Cr3,9,64 Do0.1,2 S1(1x0)1,3 '
+                                       'W{w2v}128,2,0.115,32 Lbx200 Do0.1,2 Lbx200 Do0.1,2 Lbx200 Do]')
+        self.mask_width = kwargs.pop('mask_width', 4)
+        self.mask_prob = kwargs.pop('mask_prob', 0.5)
+        self.num_negatives = kwargs.pop('num_negatives', 100)
+        self.logit_temp = kwargs.pop('logit_temp', 0.1)
         super().__init__(**kwargs)

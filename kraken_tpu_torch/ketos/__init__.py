@@ -8,19 +8,20 @@ the counterpart of the JAX package's ``ketos``:
     python -m kraken_tpu_torch.ketos [-d cpu] <command> ...
 
 The commands that run a model (``train``, ``segtrain``, ``rotrain``,
-``test``, ``segtest``) run on the card: ``--device`` defaults to ``cuda``
-and such a run without a card stops with a usage error unless it asks for
-``--device cpu``. ``train`` (a recognition model; ``-f path`` line images
-with ``.gt.txt``, ``-f xml`` pages (``lxml``), ``-f binary`` Arrow files
-(``pyarrow``)), ``segtrain`` (a baseline segmentation model, XML pages) and
-``rotrain`` (a neural reading-order model, XML pages) train in float32 and
-write checkpoints; ``convert`` (checkpoints and weights to a weights file),
-``roadd`` (a reading-order model into a segmentation model's file),
-``compile`` (an Arrow dataset; needs ``pyarrow``, and ``lxml`` for XML
-input), ``test`` (a recognition model's accuracy report; ``-f binary``
-needs ``pyarrow``, ``-f xml`` ``lxml``) and ``segtest`` (a segmentation
-model's metrics; needs ``lxml``). ``pretrain`` (ROADMAP.md queue 1 item 11)
-is a usage error until its item lands; ``publish`` talks to the model
+``pretrain``, ``test``, ``segtest``) run on the card: ``--device`` defaults
+to ``cuda`` and such a run without a card stops with a usage error unless
+it asks for ``--device cpu``. ``train`` (a recognition model; ``-f path``
+line images with ``.gt.txt``, ``-f xml`` pages (``lxml``), ``-f binary``
+Arrow files (``pyarrow``)), ``segtrain`` (a baseline segmentation model,
+XML pages), ``rotrain`` (a neural reading-order model, XML pages) and
+``pretrain`` (a recognition backbone, contrastively, from untranscribed
+lines; ``-f binary`` by default) train in float32 and write checkpoints;
+``convert`` (checkpoints and weights to a weights file), ``roadd`` (a
+reading-order model into a segmentation model's file), ``compile`` (an
+Arrow dataset; needs ``pyarrow``, and ``lxml`` for XML input), ``test`` (a
+recognition model's accuracy report; ``-f binary`` needs ``pyarrow``,
+``-f xml`` ``lxml``) and ``segtest`` (a segmentation model's metrics;
+needs ``lxml``). ``publish`` talks to the model
 repository over the network and is not ported, by decision.
 """
 import logging
@@ -79,18 +80,8 @@ def cli(verbose, seed, device, precision, workers, threads):
     log.set_logger(logger, level=30 - min(10 * verbose, 20))
 
 
-def _not_yet(name: str, item: str):
-    """A command of the JAX ketos whose port waits for a ROADMAP item: any
-    call is a usage error that names it."""
-    @click.command(name, context_settings=dict(ignore_unknown_options=True,
-                                               allow_extra_args=True, help_option_names=[]))
-    def command():
-        raise click.UsageError(f'ketos {name} is not ported yet: ROADMAP.md queue 1 item {item}.')
-    command.help = f'Not ported yet (ROADMAP.md queue 1 item {item}).'
-    return command
-
-
-from kraken_tpu_torch.ketos import dataset, recognition, ro, segmentation, weights  # noqa: E402
+from kraken_tpu_torch.ketos import (dataset, pretrain, recognition, ro, segmentation,  # noqa: E402
+                                    weights)
 
 cli.add_command(recognition.train)
 cli.add_command(recognition.test)
@@ -100,7 +91,7 @@ cli.add_command(ro.rotrain)
 cli.add_command(ro.roadd)
 cli.add_command(dataset.compile)
 cli.add_command(weights.convert)
-cli.add_command(_not_yet('pretrain', '11'))
+cli.add_command(pretrain.pretrain)
 
 
 if __name__ == '__main__':

@@ -146,6 +146,7 @@ def _serialize_layers(names, layer_objs, input_name: str, out: list) -> str:
     """Walks the layer tree emitting NeuralNetworkLayer messages; returns the
     final output blob name."""
     from kraken_tpu_torch.nn import layers as L
+    from kraken_tpu_torch.pretrain.layers import Wav2Vec2Mask
 
     current = input_name
     for name, layer in zip(names, layer_objs):
@@ -229,6 +230,22 @@ def _serialize_layers(names, layer_objs, input_name: str, out: list) -> str:
             body = _custom_body('identity', 'An identity layer')
             out.append(_layer(name, [current], [name], 500, body))
             current = name
+        elif isinstance(layer, Wav2Vec2Mask):
+            # an embedding and an inner product beside the data path: the
+            # next layer reads the masking layer's input
+            emb_name = f'{name}_wave2vec2_emb'
+            body = (_field_varint(1, layer.context_encoder_input_dim) +
+                    _field_varint(2, layer.mask_width) +
+                    _field_varint(10, 0) +
+                    _field_bytes(20, _weight_params(p['mask_emb.weight'])))
+            out.append(_layer(emb_name, [current], [emb_name], 150, body))
+            lin_name = f'{name}_wave2vec2_lin'
+            body = (_field_varint(1, layer.context_encoder_input_dim) +
+                    _field_varint(2, layer.final_dim) +
+                    _field_varint(10, 1) +
+                    _field_bytes(20, _weight_params(p['project_q.weight'])) +
+                    _field_bytes(21, _weight_params(p['project_q.bias'])))
+            out.append(_layer(lin_name, [current], [lin_name], 140, body))
         else:
             raise ValueError(f'Cannot serialize layer {type(layer).__name__} to CoreML')
     return current

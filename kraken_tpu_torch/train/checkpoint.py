@@ -54,20 +54,23 @@ def config_from_checkpoint(training_meta: dict):
 
 def save_checkpoint(model, optimizer, path: Union[str, PathLike], epoch: int = 0,
                     global_step: int = 0, hyper_params: Optional[dict] = None,
-                    extras: Optional[dict[str, Any]] = None) -> None:
+                    extras: Optional[dict[str, Any]] = None,
+                    tensors: Optional[dict[str, np.ndarray]] = None) -> None:
     """Writes a resumable checkpoint that also loads as a plain model file;
-    `optimizer` is a ``train.optim.Optimizer`` or None."""
+    `optimizer` is a ``train.optim.Optimizer`` or None, `tensors` arrays
+    kept under the model's key prefix beside its parameters (pretraining's
+    ``nn.__pretrain__.*``, which the model loaders ignore)."""
     from kraken_tpu_torch.models._safetensors import write_safetensors
 
     prefix = str(uuid.uuid4())
-    tensors = {f'{prefix}.{k}': v for k, v in state_arrays(model).items()}
+    arrays = {f'{prefix}.{k}': v for k, v in {**state_arrays(model), **(tensors or {})}.items()}
     if optimizer is not None:
         for k, v in optimizer.state_tensors().items():
-            tensors[f'{OPT_PREFIX}{k}'] = v.detach().cpu().numpy()
+            arrays[f'{OPT_PREFIX}{k}'] = v.detach().cpu().numpy()
     meta = {'epoch': epoch, 'global_step': global_step, 'hyper_params': hyper_params or {},
             'prefix': prefix}
     meta.update(extras or {})
-    write_safetensors(Path(path), tensors,
+    write_safetensors(Path(path), arrays,
                       {'kraken_meta': json.dumps({prefix: _model_metadata(model)}),
                        'training_meta': json.dumps(meta, default=str)})
 

@@ -25,6 +25,9 @@ Task modules provide:
     loss_fn(batch) -> tensor     the mini-batch's scalar loss
     validate(datamodule) -> dict with 'val_metric' (higher = better)
     checkpoint_extras() -> dict  metadata kept in checkpoints
+    checkpoint_tensors() -> dict arrays kept beside the model's in
+                                 checkpoints (pretraining's parameters)
+    load_checkpoint_tensors(path) restores them on ``resume``
 """
 import contextlib
 import logging
@@ -116,6 +119,12 @@ class TrainingModule:
         self._torch_net().to(device=self._device, dtype=torch.float32)
         self.net_train()
 
+    def checkpoint_tensors(self) -> dict:
+        return {}
+
+    def load_checkpoint_tensors(self, path) -> None:
+        pass
+
     def _run(self, fn, *args):
         """fn(*args), through ``torch.utils.checkpoint`` when the config
         asks for ``remat``."""
@@ -188,6 +197,7 @@ class KrakenTrainer:
             ckpt_model, meta = load_checkpoint(resume, optimizer)
             with torch.no_grad():
                 module.net.load_state_dict(ckpt_model.state_dict(), prefix='nn.')
+            module.load_checkpoint_tensors(resume)
             config.completed_epochs = int(meta.get('epoch', -1)) + 1
             self.global_step = int(meta.get('global_step', 0))
             logger.info(f'Resumed from {resume} at epoch {config.completed_epochs}, '
@@ -357,7 +367,7 @@ class KrakenTrainer:
                         global_step=self.global_step,
                         hyper_params={'config_class': type(self.config).__name__,
                                       **vars(self.config)},
-                        extras=extras)
+                        extras=extras, tensors=module.checkpoint_tensors())
         logger.info(f'Wrote checkpoint {path}')
         return path
 

@@ -25,12 +25,13 @@ Spec syntax::
     Te<h>,<d>,<f>[,<p>]         transformer encoder block (the JAX package's
                                 extension): h heads, width d, FFN f,
                                 dropout p/100 (default 0.1)
+    W{<name>}<dim>,<width>,<prob>,<neg>  wav2vec2 masking (pretraining; the
+                                block needs its name)
     O(2|1|0)(l|s|c)[a]<n>       output layer
     [...]  serial block         (...)  parallel block
 
 The ocropy peephole LSTM exists only bidirectional (``Lbxo``, ``Lbyo``):
-``Lfxo``/``Lrxo`` raise a ValueError. Not ported yet (ROADMAP.md): ``W``
-wav2vec2 masking, whose specs raise ``NotImplementedError``.
+``Lfxo``/``Lrxo`` raise a ValueError.
 """
 import json
 import logging
@@ -145,13 +146,19 @@ class _Parser:
         return input, _Block(block, m.group('type'), m.group('name'), self.idx), layer
 
     def _wav2vec2(self, input, block, target_output_shape=None):
-        # W<dim>,<width>,<prob>,<neg>: pretraining mask, part of the
-        # pretraining slice
-        if not re.match(r'(?P<type>W)(?P<name>{\w+})(?P<final_dim>\d+),(?P<mask_width>\d+),'
-                        r'(?P<mask_prob>(\d+(\.\d*)?|\.\d+)),(?P<num_negatives>\d+)', block):
+        m = re.match(r'(?P<type>W)(?P<name>{\w+})(?P<final_dim>\d+),(?P<mask_width>\d+),'
+                     r'(?P<mask_prob>(\d+(\.\d*)?|\.\d+)),(?P<num_negatives>\d+)', block)
+        if not m:
             return None
-        raise NotImplementedError('the wav2vec2 masking layer (W specs) is not ported yet: '
-                                  'ROADMAP.md, queue 1, item 11')
+        from kraken_tpu_torch.pretrain.layers import Wav2Vec2Mask
+        layer = Wav2Vec2Mask(input[1],
+                             int(m.group('final_dim')),
+                             int(m.group('mask_width')),
+                             float(m.group('mask_prob')),
+                             int(m.group('num_negatives')),
+                             generator=self.generator)
+        self.idx += 1
+        return layer.get_shape(input), _Block(block, m.group('type'), m.group('name'), self.idx), layer
 
     def _conv(self, input, block, target_output_shape=None):
         m = re.match(r'(?P<type>C)(?P<trans>T)?(?P<nl>s|t|r|l|lr|m)(?P<name>{\w+})?(\d+),'

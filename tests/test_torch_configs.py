@@ -86,6 +86,9 @@ SHARED_TRAINING = {
     'SegmentationTrainingConfig': ('precision', 'batch_size', 'raise_on_error', 'bl_tol', 'spec',
                                    'resize', 'topline', 'dice_weight', 'lrate', 'optimizer'),
     'ReadingOrderTrainingConfig': ('level', 'reading_order', 'lrate', 'optimizer'),
+    'PretrainingConfig': ('spec', 'mask_width', 'mask_prob', 'num_negatives', 'logit_temp',
+                          'lrate', 'optimizer', 'gradient_clip_val', 'epochs', 'freq',
+                          'schedule', 'save_top_k'),
     'RecognitionTrainingDataConfig': ('evaluation_data', 'test_data', 'num_workers', 'augment',
                                       'batch_size', 'binary_dataset_split', 'format_type',
                                       'linetype', 'pad', 'normalization',

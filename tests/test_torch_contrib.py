@@ -15,7 +15,10 @@ run through both packages' scripts on the same inputs give
 - for ``set_seg_options`` and ``add_neural_ro`` (model writers), files
   that load in both packages with the JAX script's metadata and
   parameters (bit for bit); for ``test_per_file``, the JAX script's
-  output.
+  output;
+- byte-equal target heatmaps and overlays from ``baselineset_overlay``;
+  from ``generate_scripts`` the JAX script's JSON, which with no options
+  is the checked-in ``dataset/_scripts_ranges.json``, byte for byte.
 
 The scripts that run a model default to ``--device cuda`` and stop with a
 usage error without a card; here they run with ``-d cpu``.
@@ -227,3 +230,23 @@ def test_per_file_equals_jax():
     ours = _run('kraken_tpu_torch', 'test_per_file', ['-d', 'cpu'] + args).output
     assert 'TOTAL\tCER' in ours
     assert ours == _run('kraken_tpu', 'test_per_file', args).output
+
+
+def test_baselineset_overlay(tmp_path):
+    out = {}
+    for package in ('kraken_tpu', 'kraken_tpu_torch'):
+        page = _page_copy(tmp_path / package)
+        _run(package, 'baselineset_overlay', [page])
+        out[package] = {n: b for n, b in _files(tmp_path / package).items()
+                        if n.endswith('.png')}
+    names = sorted(out['kraken_tpu_torch'])
+    assert any('.heat.' in n for n in names) and any(n.endswith('.overlay.png') for n in names)
+    assert out['kraken_tpu_torch'] == out['kraken_tpu']
+
+
+def test_generate_scripts(tmp_path):
+    for package in ('kraken_tpu', 'kraken_tpu_torch'):
+        _run(package, 'generate_scripts', ['-o', tmp_path / f'{package}.json'])
+    ours = (tmp_path / 'kraken_tpu_torch.json').read_bytes()
+    assert ours == (tmp_path / 'kraken_tpu.json').read_bytes()
+    assert ours == (REPO / 'kraken_tpu_torch' / 'dataset' / '_scripts_ranges.json').read_bytes()

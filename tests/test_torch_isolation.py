@@ -136,6 +136,15 @@ for args in (['train', '-f', 'path', '-s', '[1,32,0,1 Cr3,3,4,2,2 S1(1x0)1,3 Lbx
     ketos.main(['-d', 'cpu', args[0], '-N', '1', '-o', os.path.join(work, args[0])] + args[1:],
                standalone_mode=False)
     assert load_models(os.path.join(work, args[0] + '_best.safetensors'))
+ketos.main(['-d', 'cpu', 'pretrain', '-N', '1', '-f', 'binary', '-o', os.path.join(work, 'pre'),
+            '-s', '[1,32,0,1 Cr3,3,4,2,2 S1(1x0)1,3 Lbx8 Do0.1,2]', '--mask-width', '2',
+            '--num-negatives', '4', merge + 'base.arrow'], standalone_mode=False)
+assert load_models(os.path.join(work, 'pre_0.safetensors'))
+assert VGSLModel('[1,16,0,1 Cr3,3,8 Mp2,2 S1(1x0)1,3 W{w2v}32,2,0.5,10 Lbx8 O1c5]').spec
+from kraken_tpu_torch import registry
+from kraken_tpu_torch.lib import exceptions, functional_im_transforms
+from kraken_tpu_torch.contrib import baselineset_overlay, generate_scripts
+assert registry.load_model(res + '/overfit.mlmodel')['recognition']
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'kraken_tpu'))
 print('FORBIDDEN', bad)
@@ -148,10 +157,11 @@ def test_port_runs_without_jax_or_kraken_tpu(resources):
     forced alignment, its neural reading order, its CLI (``segment -bl
     ocr`` to ALTO), its page pipeline, the host and the device nlbin, the
     legacy box segmenter, the PDF extractor, ``ketos test`` on path input,
-    a segmentation model's validation and an epoch of ``ketos train``,
-    ``segtrain`` and ``rotrain`` (with their losses, optimizers and
-    checkpoints) on the CPU and never imports JAX or kraken_tpu (the test
-    process itself has JAX)."""
+    a segmentation model's validation, an epoch of ``ketos train``,
+    ``segtrain``, ``rotrain`` and ``pretrain`` (with their losses,
+    optimizers and checkpoints), a ``W`` spec, the registry and the last
+    host modules and contrib scripts on the CPU and never imports JAX or
+    kraken_tpu (the test process itself has JAX)."""
     out = subprocess.run([sys.executable, '-c', _CHILD, str(resources)], cwd=REPO,
                          capture_output=True, text=True, timeout=300, env=subprocess_env())
     assert out.returncode == 0, out.stderr[-3000:]
@@ -177,7 +187,7 @@ def test_source_scan_finds_no_jax_imports():
     contrib = {p.stem for p in files if p.parent.name == 'contrib'}
     assert {'extract_lines', 'repolygonize', 'segmentation_overlay', 'heatmap_overlay',
             'print_word_spreader', 'generate_bidi_tables', 'set_seg_options',
-            'add_neural_ro', 'test_per_file'} <= contrib
+            'add_neural_ro', 'test_per_file', 'baselineset_overlay', 'generate_scripts'} <= contrib
     scanned = {str(p.relative_to(REPO / 'kraken_tpu_torch')) for p in files[:-1]}
     assert {'ketos/__init__.py', 'ketos/recognition.py', 'ketos/segmentation.py',
             'ketos/dataset.py', 'ketos/weights.py', 'ketos/ro.py', 'ketos/util.py',
@@ -186,7 +196,9 @@ def test_source_scan_finds_no_jax_imports():
             'train/ro.py', 'dataset/ro.py',
             'dataset/recognition.py', 'dataset/segmentation.py', 'dataset/arrow.py',
             'dataset/loader.py', 'dataset/utils.py', 'dataset/augmentation.py',
-            'models/writers.py', 'models/_coreml_writer.py'} <= scanned
+            'models/writers.py', 'models/_coreml_writer.py', 'pretrain/layers.py',
+            'pretrain/model.py', 'ketos/pretrain.py', 'registry.py',
+            'lib/functional_im_transforms.py', 'lib/exceptions.py'} <= scanned
     found = {str(p.relative_to(REPO)): _forbidden_imports(p.read_text()) for p in files}
     assert {k: v for k, v in found.items() if v} == {}
 

@@ -151,10 +151,15 @@ def test_summarize_takes_last_valid_step():
 
 
 def test_unported_layers_raise():
-    """The wav2vec2 masking layer (pretraining) is the one VGSL layer the
-    port does not build yet."""
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        VGSLModel('[1,1,0,16 S1(1x0)1,3 Cr1,1,16 W{w}16,4,0.5,10 O1c5]')
+    """The wav2vec2 masking layer (pretraining), the last VGSL layer the
+    port lacked, builds now; a ``W`` block without the name its grammar
+    requires is no block, as in the JAX package."""
+    from kraken_tpu.vgsl import VGSLModel as JaxVGSL
+    model = VGSLModel('[1,1,0,16 S1(1x0)1,3 Cr1,1,16 W{w}16,4,0.5,10 O1c5]')
+    assert model.spec == '[1,1,0,16 S1(1x0)1,3 Cr1,1,16 W{w}16,4,0.5,10 O1c5]'
+    for build in (VGSLModel, JaxVGSL):
+        with pytest.raises(ValueError):
+            build('[1,1,0,16 S1(1x0)1,3 Cr1,1,16 W16,4,0.5,10 O1c5]')
 
 
 @pytest.mark.parametrize('block', ['Lfxo16', 'Lrxo16'])
