@@ -29,9 +29,10 @@ The training and data configs (the JAX package's ``TrainingDataConfig``,
 ``TrainingConfig`` and their recognition, segmentation and reading-order
 subclasses, and the pretraining config) keep the JAX keys and defaults and
 serve the training loops and evaluation of :mod:`kraken_tpu_torch.train`,
-:mod:`kraken_tpu_torch.pretrain` and ``ketos``. ``devices``
-has no consumer until ROADMAP.md queue 1 item 10 (multi-GPU): given, it
-warns with the item's name and is dropped.
+:mod:`kraken_tpu_torch.pretrain` and ``ketos``. Their ``devices`` is the
+number of processes of data-parallel training (``ketos --devices N``, one
+a card, :mod:`kraken_tpu_torch.parallel`); the inference configs have no
+``devices`` (inference over several cards is not ported, by decision).
 """
 import logging
 from collections import defaultdict
@@ -127,25 +128,6 @@ class SegmentationInferenceConfig(Config):
         self.baseline_ro_fn = kwargs.pop('baseline_ro_fn', geometry.polygonal_reading_order)
         self.ridge_threshold = kwargs.pop('ridge_threshold', 0.17)
         super().__init__(**kwargs)
-
-
-# keys of the JAX package's training configs that nothing in the port reads
-# yet, by the ROADMAP.md queue 1 item that brings their consumer
-_DEFERRED = {
-    '10 (multi-GPU)': ('devices',),
-}
-
-
-def _drop_deferred(kwargs: dict) -> None:
-    """Pops the deferred keys from `kwargs`, warning with the ROADMAP item
-    that brings their consumer."""
-    for item, deferred in _DEFERRED.items():
-        given = sorted(k for k in deferred if k in kwargs)
-        for k in given:
-            kwargs.pop(k)
-        if given:
-            logger.warning(f'Ignoring configuration parameters {given}: nothing reads them '
-                           f'until ROADMAP.md queue 1 item {item}')
 
 
 class _Counter:
@@ -257,7 +239,8 @@ class TrainingConfig(Config):
     """
 
     def __init__(self, **kwargs):
-        _drop_deferred(kwargs)
+        # the processes of data-parallel training (ketos --devices N)
+        self.devices = kwargs.pop('devices', 1)
         self.epochs = kwargs.pop('epochs', -1)
         self.completed_epochs = kwargs.pop('completed_epochs', 0)
         self.freq = kwargs.pop('freq', 1.0)

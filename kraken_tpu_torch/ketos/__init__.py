@@ -15,7 +15,9 @@ line images with ``.gt.txt``, ``-f xml`` pages (``lxml``), ``-f binary``
 Arrow files (``pyarrow``)), ``segtrain`` (a baseline segmentation model,
 XML pages), ``rotrain`` (a neural reading-order model, XML pages) and
 ``pretrain`` (a recognition backbone, contrastively, from untranscribed
-lines; ``-f binary`` by default) train in float32 and write checkpoints;
+lines; ``-f binary`` by default) train in float32 and write checkpoints,
+on ``--devices N`` processes with one card each (gloo ranks with ``-d
+cpu``);
 ``convert`` (checkpoints and weights to a weights file), ``roadd`` (a
 reading-order model into a segmentation model's file), ``compile`` (an
 Arrow dataset; needs ``pyarrow``, and ``lxml`` for XML input), ``test`` (a
@@ -45,7 +47,18 @@ def message(msg: str, **styles) -> None:
 from kraken_tpu_torch.ketos.util import _load_yaml_config  # noqa: E402
 
 
-@click.group(context_settings=dict(show_default=True))
+class _Ketos(click.Group):
+    """The ketos group; keeps its command line in ``ctx.meta['argv']``, from
+    which ``--devices N`` starts its other ranks."""
+
+    def make_context(self, info_name, args, parent=None, **extra):
+        argv = list(args)
+        ctx = super().make_context(info_name, args, parent=parent, **extra)
+        ctx.meta['argv'] = argv
+        return ctx
+
+
+@click.group(cls=_Ketos, context_settings=dict(show_default=True))
 @click.version_option(version=__version__, prog_name='ketos')
 @click.option('-v', '--verbose', default=0, count=True)
 @click.option('-s', '--seed', default=None, type=click.INT,

@@ -7,7 +7,7 @@ encoded with a one-glyph codec, one without is left unencoded.
 """
 import click
 
-from kraken_tpu_torch.ketos.util import _load_yaml_config, expand_manifests
+from kraken_tpu_torch.ketos.util import _load_yaml_config, device_mesh, expand_manifests
 
 
 @click.command('pretrain')
@@ -64,8 +64,8 @@ from kraken_tpu_torch.ketos.util import _load_yaml_config, expand_manifests
 @click.option('--resume', default=None, type=click.Path(exists=True),
               help='Resume training from a checkpoint.')
 @click.option('--devices', type=int, default=1,
-              help='Number of devices for data-parallel training (not ported yet: '
-                   'ROADMAP.md queue 1 item 10; more than 1 warns).')
+              help='Number of devices for data-parallel training: one process a device '
+                   '(NCCL on cuda, gloo on cpu).')
 @click.argument('ground_truth', nargs=-1, type=click.Path(exists=True, dir_okay=False))
 def pretrain(ctx, output, spec, load, batch_size, freq, quit, epochs, min_epochs,
              lag, min_delta, optimizer, lrate, momentum, weight_decay,
@@ -121,6 +121,9 @@ def pretrain(ctx, output, spec, load, batch_size, freq, quit, epochs, min_epochs
     dm = PretrainDataModule(data_config)
     module = (RecognitionPretrainModel.load_from_weights(config, load) if load
               else RecognitionPretrainModel(config))
-    trainer = KrakenTrainer(config, log_dir=log_dir)
-    trainer.fit(module, dm, resume=resume)
+    with device_mesh(devices, config.device) as mesh:
+        trainer = KrakenTrainer(config, mesh=mesh, log_dir=log_dir)
+        trainer.fit(module, dm, resume=resume)
+    if not trainer.is_main:
+        return
     message(f'Pretraining complete. Checkpoints under {output}_*.safetensors')

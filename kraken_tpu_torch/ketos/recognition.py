@@ -1,15 +1,15 @@
 """
 ketos train and test (reference: kraken/ketos/recognition.py), the
 counterparts of the JAX package's: ``train`` trains a text recognition
-model on ``--device`` (in float32) and writes checkpoints and the best
-model; ``test`` evaluates recognition models on a test set on ``--device``
+model on ``--device`` (in float32; on ``--devices N`` processes, one a
+device) and writes checkpoints and the best model; ``test`` evaluates recognition models on a test set on ``--device``
 and prints the accuracy report.
 """
 from pathlib import Path
 
 import click
 
-from kraken_tpu_torch.ketos.util import _load_yaml_config, expand_manifests
+from kraken_tpu_torch.ketos.util import _load_yaml_config, device_mesh, expand_manifests
 
 
 def _common_train_options(f):
@@ -96,8 +96,8 @@ def _common_train_options(f):
                       help='Resume training from a checkpoint (weights, optimizer '
                            'state, and epoch counter).'),
         click.option('--devices', type=int, default=1,
-                      help='Number of devices for data-parallel training (not ported '
-                           'yet: ROADMAP.md queue 1 item 10; more than 1 warns).'),
+                      help='Number of devices for data-parallel training: one process '
+                           'a device (NCCL on cuda, gloo on cpu).'),
         click.option('--profile-dir', default=None, type=click.Path(),
                       help='Write a torch.profiler trace of the first epoch to this '
                            'directory (inspect with tensorboard).'),
@@ -181,10 +181,11 @@ def train(ctx, ground_truth, batch_size, output, pad, weights_format, linetype,
     dm = RecognitionDataModule(data_config)
     module = (RecognitionModel.load_from_weights(config, load) if load
               else RecognitionModel(config))
-    trainer = KrakenTrainer(config, log_dir=log_dir)
-    trainer.fit(module, dm, resume=resume)
+    with device_mesh(devices, config.device) as mesh:
+        trainer = KrakenTrainer(config, mesh=mesh, log_dir=log_dir)
+        trainer.fit(module, dm, resume=resume)
     best = trainer._ckpt_path('best')
-    if best.exists():
+    if trainer.is_main and best.exists():
         ext = '.mlmodel' if weights_format == 'coreml' else '.safetensors'
         out = Path(f'{output}_best{ext}')
         convert_checkpoint(best, out, format=weights_format)

@@ -8,7 +8,7 @@ import logging
 
 import click
 
-from kraken_tpu_torch.ketos.util import _load_yaml_config, expand_manifests
+from kraken_tpu_torch.ketos.util import _load_yaml_config, device_mesh, expand_manifests
 
 logger = logging.getLogger('kraken')
 
@@ -66,8 +66,8 @@ logger = logging.getLogger('kraken')
               help='Extract the class mapping from a segmentation checkpoint; '
                    '--level selects the baseline or region mapping.')
 @click.option('--devices', type=int, default=1,
-              help='Number of devices for data-parallel training (not ported yet: '
-                   'ROADMAP.md queue 1 item 10; more than 1 warns).')
+              help='Number of devices for data-parallel training: one process a device '
+                   '(NCCL on cuda, gloo on cpu).')
 @click.argument('ground_truth', nargs=-1, type=click.Path(exists=True, dir_okay=False))
 def rotrain(ctx, output, batch_size, freq, quit, epochs, min_epochs, lag,
             min_delta, optimizer, lrate, momentum, weight_decay,
@@ -147,8 +147,11 @@ def rotrain(ctx, output, batch_size, freq, quit, epochs, min_epochs, lag,
     dm = RODataModule(data_config, class_mapping=class_mapping, level=level)
     module = (ROModel.load_from_weights(config, load, level=level) if load
               else ROModel(config, level=level))
-    trainer = KrakenTrainer(config, log_dir=log_dir)
-    trainer.fit(module, dm, resume=resume)
+    with device_mesh(devices, config.device) as mesh:
+        trainer = KrakenTrainer(config, mesh=mesh, log_dir=log_dir)
+        trainer.fit(module, dm, resume=resume)
+    if not trainer.is_main:
+        return
     message(f'Training complete. Best epoch: {trainer.best_epoch} '
             f'(metric {trainer.best_metric:.4f})')
 

@@ -9,7 +9,7 @@ from pathlib import Path
 
 import click
 
-from kraken_tpu_torch.ketos.util import _load_yaml_config, expand_manifests
+from kraken_tpu_torch.ketos.util import _load_yaml_config, device_mesh, expand_manifests
 
 
 def _print_class_stats(dataset):
@@ -89,8 +89,8 @@ def _print_class_stats(dataset):
 @click.option('--remat/--no-remat', default=False,
               help='Rematerialize the forward on backward to save device memory.')
 @click.option('--devices', type=int, default=1,
-              help='Number of devices for data-parallel training (not ported yet: '
-                   'ROADMAP.md queue 1 item 10; more than 1 warns).')
+              help='Number of devices for data-parallel training: one process a device '
+                   '(NCCL on cuda, gloo on cpu).')
 @click.option('--resume', default=None, type=click.Path(exists=True),
               help='Resume training from a checkpoint.')
 @click.option('--logger', 'loggers', default=None,
@@ -191,8 +191,11 @@ def segtrain(ctx, output, spec, load, line_width, dice_weight, bl_tol,
     dm = SegmentationDataModule(data_config)
     module = (SegmentationModel.load_from_weights(config, load) if load
               else SegmentationModel(config))
-    trainer = KrakenTrainer(config, log_dir=log_dir)
-    trainer.fit(module, dm, resume=resume)
+    with device_mesh(devices, config.device) as mesh:
+        trainer = KrakenTrainer(config, mesh=mesh, log_dir=log_dir)
+        trainer.fit(module, dm, resume=resume)
+    if not trainer.is_main:
+        return
     train_ds = dm.train_set.dataset if hasattr(dm.train_set, 'dataset') else dm.train_set
     _print_class_stats(train_ds)
     best = trainer._ckpt_path('best')

@@ -17,6 +17,7 @@ step. The smoothing of the integer argmax track runs in integer arithmetic
 (scipy preserves the input dtype), and that truncation is part of the
 pinned behavior.
 """
+import copy
 import warnings
 from typing import TYPE_CHECKING
 
@@ -200,9 +201,13 @@ class CenterNormalizer:
 
 
 def dewarp(normalizer: CenterNormalizer, im: 'Image.Image') -> 'Image.Image':
-    """Dewarps a PIL line image with a CenterNormalizer."""
+    """Dewarps a PIL line image with a CenterNormalizer. The measurement goes
+    into a copy of `normalizer`: the loader's threads share one (the
+    transforms'), and a measurement another thread makes between this one's
+    measure and dewarp would dewarp this line by that line's centerline."""
     from kraken_tpu_torch.lib.util import array2pil, pil2array
 
+    normalizer = copy.copy(normalizer)
     line = pil2array(im)
     ink = np.amax(line) - line  # dark-on-light → ink intensity
     normalizer.measure(ink * 1.0 / np.amax(ink))

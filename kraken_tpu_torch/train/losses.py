@@ -16,6 +16,13 @@ between) torch's loss is infinite and zeroed, as the documented
 zero_infinity semantics ask; optax returns about 1e5 there (its
 ``log_epsilon``), which the JAX ``isfinite`` filter does not catch, so the
 JAX loss counts such a line and the port drops it (ROADMAP.md queue 3).
+
+In data-parallel training each rank's loss is its shard's, and the trainer
+averages the ranks' gradients: that is the global loss's gradient for the
+means (BCE over equal shards, CTC's sum over the global batch size). The
+Dice term sums over the batch axis and adds ``smooth`` to a ratio of sums,
+so its sums are summed over the ranks first (:func:`dice_loss` with a
+``world``).
 """
 from typing import Optional
 
@@ -49,23 +56,45 @@ def bce_logits_loss(logits: torch.Tensor, targets: torch.Tensor,
     return loss.mean() if mean else loss
 
 
-def dice_loss(logits: torch.Tensor, targets: torch.Tensor, smooth: float = 1.0) -> torch.Tensor:
+class _SumOverRanks(torch.autograd.Function):
+    """The sum of a tensor over the ranks of a world. The sum, and so
+    whatever follows from it, is the same on every rank; each rank passes
+    the gradient on to its own share times the world size, so that the
+    ranks' averaged gradient is the gradient of the function of the
+    global sum."""
+
+    @staticmethod
+    def forward(ctx, x, world):
+        ctx.size = world.size
+        return world.all_reduce(x.clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.size, None
+
+
+def dice_loss(logits: torch.Tensor, targets: torch.Tensor, smooth: float = 1.0,
+              world=None) -> torch.Tensor:
     """Soft Dice loss over sigmoid probabilities, one term a class averaged
-    over the classes."""
+    over the classes; with a ``parallel.World``, over the global batch of
+    its ranks' shards."""
     probs = torch.sigmoid(logits.to(torch.float32))
     dims = (0, 2, 3)
     intersection = (probs * targets).sum(dims)
     cardinality = probs.sum(dims) + targets.sum(dims)
+    if world is not None:
+        intersection, cardinality = _SumOverRanks.apply(
+            torch.stack([intersection, cardinality]), world)
     dice = (2 * intersection + smooth) / (cardinality + smooth)
     return (1 - dice).mean()
 
 
 def segmentation_loss(logits: torch.Tensor, targets: torch.Tensor,
-                      dice_weight: Optional[float] = 0.5) -> torch.Tensor:
+                      dice_weight: Optional[float] = 0.5, world=None) -> torch.Tensor:
     """BCE + weighted soft Dice, the baseline segmentation training
     criterion (reference: train/blla.py:277-294); dice_weight 0 drops the
-    Dice term."""
+    Dice term. With a ``world`` the Dice term is the global batch's."""
     loss = bce_logits_loss(logits, targets)
     if dice_weight and dice_weight > 0:
-        loss = loss + dice_weight * dice_loss(logits, targets)
+        loss = loss + dice_weight * dice_loss(logits, targets, world=world)
     return loss

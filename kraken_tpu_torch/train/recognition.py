@@ -33,7 +33,7 @@ import torch
 from kraken_tpu_torch.codec import Codec
 from kraken_tpu_torch.containers import Segmentation
 from kraken_tpu_torch.dataset import ImageInputTransforms
-from kraken_tpu_torch.dataset.loader import DataLoader, bucket_collate
+from kraken_tpu_torch.dataset.loader import DataLoader, bucket_collate, bucket_dims
 from kraken_tpu_torch.dataset.recognition import (ArrowIPCRecognitionDataset,
                                                   GroundTruthDataset, PolygonGTDataset)
 from kraken_tpu_torch.dataset.utils import compute_confusions, global_align
@@ -179,7 +179,8 @@ class RecognitionDataModule:
             batch_size = len(subset)
         return DataLoader(subset, batch_size=batch_size, shuffle=shuffle, drop_last=shuffle,
                           collate_fn=bucket_collate, num_workers=self.config.num_workers,
-                          seed=int(np.random.randint(0, 2**31 - 1)) if shuffle else None)
+                          seed=int(np.random.randint(0, 2**31 - 1)) if shuffle else None,
+                          dims_fn=bucket_dims)
 
     def train_dataloader(self):
         return self._loader(self.train_set, True)

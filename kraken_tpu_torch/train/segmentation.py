@@ -48,7 +48,17 @@ __all__ = ['SegmentationModel', 'SegmentationDataModule']
 RIDGE_THRESHOLD = 0.17
 
 
-def _seg_collate(batch):
+def _seg_dims(sample: dict) -> tuple:
+    return sample['image'].shape + sample['target'].shape
+
+
+def _seg_collate(batch, dims=None):
+    """Pages of one shape stacked; `dims`, the (largest, smallest) page
+    shapes over a sharded global batch, must agree, as the pages of one
+    batch must."""
+    if dims is not None and tuple(dims[0]) != tuple(dims[1]):
+        raise ValueError(f'the pages of a batch differ in shape: {tuple(dims[1])} to '
+                         f'{tuple(dims[0])}')
     images = np.stack([b['image'] for b in batch])
     targets = np.stack([b['target'] for b in batch])
     return {'image': images, 'target': targets,
@@ -127,7 +137,7 @@ class SegmentationDataModule:
                            f'set size {len(self.train_set)}; clamping.')
         return DataLoader(self.train_set, batch_size=batch_size, shuffle=True, drop_last=True,
                           collate_fn=_seg_collate, num_workers=self.config.num_workers,
-                          seed=int(np.random.randint(0, 2**31 - 1)))
+                          seed=int(np.random.randint(0, 2**31 - 1)), dims_fn=_seg_dims)
 
     def val_dataloader(self):
         return DataLoader(self.val_set, batch_size=1, collate_fn=_seg_collate)
@@ -232,7 +242,8 @@ class SegmentationModel(TrainingModule):
                                                                            torch.float32)
         logits, _ = self._run(self.net.net, x)
         logits = resize_bilinear(logits, tuple(target.shape[2:]))
-        return segmentation_loss(logits, target, dice_weight=self.config.dice_weight)
+        return segmentation_loss(logits, target, dice_weight=self.config.dice_weight,
+                                 world=self.world)
 
     def checkpoint_extras(self) -> dict:
         return {'_seg_type': 'baselines',

@@ -18,6 +18,18 @@ LSTM and GroupNorm layers run their forward and backward kernels. Dropout
 draws from one ``torch.Generator`` on that device, seeded from numpy's
 global state (which ``ketos --seed`` seeds).
 
+With a ``mesh`` (a ``parallel.World``, the JAX trainer's mesh) the fit is
+one rank of a data-parallel run: rank 0's parameters and buffers are
+broadcast at the start, the loader is sharded (one shuffle order, each rank
+loading its rows of every global batch), the gradients are averaged over
+the ranks after the backward (``parallel.make_train_step``), before the
+frozen-backbone zeroing and the optimizer step. Rank 0 alone validates,
+writes checkpoints and logs; it broadcasts its stop decision and
+reduce-on-plateau scale after every validation, so that every rank stops or
+reduces the rate at the same step. The epoch loss is averaged over the
+ranks when it is read. Each rank's generator is seeded with rank 0's seed
+plus its rank.
+
 Task modules provide:
     net                          the model (VGSLModel or ROMLP)
     setup(stage, datamodule)     builds ``loss_fn`` and places the net
@@ -39,6 +51,7 @@ import numpy as np
 import torch
 
 from kraken_tpu_torch.exceptions import KrakenStopTrainingException
+from kraken_tpu_torch.parallel import make_train_step, replicate
 from kraken_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from kraken_tpu_torch.train.optim import Optimizer
 
@@ -93,6 +106,9 @@ class TrainingModule:
     """
 
     generator: Optional[torch.Generator] = None
+    # the data-parallel world the module's loss is computed in (the
+    # trainer's mesh), or None
+    world = None
 
     def _torch_net(self) -> torch.nn.Module:
         return self.net.net if hasattr(self.net, 'net') else self.net
@@ -156,9 +172,10 @@ def _dropout_layers(module: torch.nn.Module):
 class KrakenTrainer:
     """Drives the training of a task module according to a TrainingConfig."""
 
-    def __init__(self, config, progress: bool = True, fast_dev_run: bool = False,
+    def __init__(self, config, mesh=None, progress: bool = True, fast_dev_run: bool = False,
                  log_dir: Optional[str] = None):
         self.config = config
+        self.mesh = mesh
         self.progress = progress
         self.fast_dev_run = fast_dev_run
         self.log_dir = log_dir
@@ -170,15 +187,27 @@ class KrakenTrainer:
         self._ckpt_ledger: list[tuple[float, Path]] = []
         self.optimizer: Optional[Optimizer] = None
 
+    @property
+    def is_main(self) -> bool:
+        """Whether this process validates, checkpoints and logs: rank 0 of
+        the mesh, or the only process."""
+        return self.mesh is None or self.mesh.is_main
+
     # ------------------------------------------------------------------ fit
     def fit(self, module, datamodule, resume: Optional[str] = None) -> None:
-        from kraken_tpu_torch.inference.recognition import _precise_fp32
         config = self.config
+        world = self.mesh
         module.trainer = self
+        module.world = world
         datamodule.setup('fit')
         module.setup('fit', datamodule)
+        if world is not None and module.device != world.device:
+            raise ValueError(f'rank {world.rank} runs on {world.device}, its module on '
+                             f'{module.device}')
 
         train_loader = datamodule.train_dataloader()
+        if world is not None:
+            train_loader.shard(world)
         if len(train_loader) == 0:
             # drop_last with a batch size above the training set size would
             # train zero steps an epoch
@@ -202,13 +231,17 @@ class KrakenTrainer:
             self.global_step = int(meta.get('global_step', 0))
             logger.info(f'Resumed from {resume} at epoch {config.completed_epochs}, '
                         f'step {self.global_step}.')
+        if world is not None:
+            replicate(world, params + list(module._torch_net().buffers()))
 
-        exp_logger = _ExperimentLogger(config.loggers,
+        exp_logger = _ExperimentLogger(config.loggers if self.is_main else None,
                                        self.log_dir or str(Path(config.checkpoint_path).parent / 'runs'),
                                        config)
         device = module.device
-        generator = torch.Generator(device=device).manual_seed(
-            int(np.random.randint(0, 2**31 - 1)))
+        seed = int(np.random.randint(0, 2**31 - 1))
+        if world is not None:
+            seed = world.broadcast_object(seed) + world.rank
+        generator = torch.Generator(device=device).manual_seed(seed)
         module.generator = generator
         for layer in _dropout_layers(module._torch_net()):
             layer.generator = generator
@@ -225,23 +258,13 @@ class KrakenTrainer:
             head_params = {id(p) for p in head.parameters()}
             frozen = [p for p in params if id(p) not in head_params]
 
-        def train_step(batch, rop_scale):
-            for p in params:
-                p.grad = None
-            with _precise_fp32(torch.float32):
-                loss = module.loss_fn(batch)
-                loss.backward()
-                freeze = frozen and self.global_step < freeze_steps
-                if freeze:
-                    kept = [p.detach().clone() for p in frozen]
-                    for p in frozen:
-                        p.grad = torch.zeros_like(p)
-                optimizer.step(rop_scale)
-                if freeze:
-                    with torch.no_grad():
-                        for p, v in zip(frozen, kept):
-                            p.copy_(v)
-            return loss.detach()
+        train_step = make_train_step(
+            module, optimizer, world,
+            frozen=lambda: frozen if self.global_step < freeze_steps else ())
+
+        def mean_loss(total: torch.Tensor, n: int) -> float:
+            """The epoch's loss so far, over every rank's shards."""
+            return (float(total) if world is None else world.mean(total)) / max(n, 1)
 
         epochs = config.epochs if config.epochs and config.epochs > 0 else \
             (1 if self.fast_dev_run else 10**6)
@@ -254,8 +277,16 @@ class KrakenTrainer:
                         if 0 < config.freq < 1 else None)
 
         def run_validation(tag, avg_loss):
-            """Validation, checkpoints, early-stop and ROP bookkeeping;
-            True when training should stop."""
+            """Validation, checkpoints, early-stop and ROP bookkeeping on
+            rank 0, whose decisions every rank takes; True when training
+            should stop."""
+            nonlocal rop_scale
+            stop = validate(tag, avg_loss) if self.is_main else None
+            if world is not None:
+                stop, rop_scale = world.broadcast_object((stop, rop_scale))
+            return stop
+
+        def validate(tag, avg_loss):
             nonlocal lag_counter, rop_counter, rop_scale
             epoch = self.current_epoch
             module.net_eval()
@@ -310,7 +341,7 @@ class KrakenTrainer:
                     if (val_interval and not self.fast_dev_run
                             and self.global_step % val_interval == 0):
                         stop = run_validation(f'{epoch}_s{self.global_step}',
-                                              float(epoch_loss) / n_batches)
+                                              mean_loss(epoch_loss, n_batches))
                         if stop:
                             break
                     if self.fast_dev_run:
@@ -319,7 +350,7 @@ class KrakenTrainer:
                     profiler.__exit__(None, None, None)
                     profiler = None
                     logger.info(f'Wrote profiler trace for epoch {epoch} to {config.profile_dir}')
-                avg_loss = float(epoch_loss) / max(n_batches, 1)
+                avg_loss = mean_loss(epoch_loss, n_batches)
                 logger.info(f'epoch {epoch}: loss {avg_loss:.4f}')
                 exp_logger.log_scalars({'train_loss': avg_loss,
                                         'lr': optimizer.lr(rop_scale)}, epoch)
@@ -338,13 +369,15 @@ class KrakenTrainer:
                 if self.fast_dev_run:
                     break
         except KeyboardInterrupt:
-            logger.warning('Training interrupted. Writing abort checkpoint.')
-            self._write(module, 'checkpoint_abort')
+            if self.is_main:
+                logger.warning('Training interrupted. Writing abort checkpoint.')
+                self._write(module, 'checkpoint_abort')
             raise
         except KrakenStopTrainingException:
             logger.info('Training stopped by callback.')
         except Exception:
-            self._write(module, 'checkpoint_abort')
+            if self.is_main:
+                self._write(module, 'checkpoint_abort')
             raise
         finally:
             if profiler is not None:

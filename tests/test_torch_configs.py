@@ -8,7 +8,8 @@ keys both packages read keep the JAX defaults.
 The training and data configs keep the JAX keys and defaults; each
 training key is stored and reaches its consumer (the optimizer, the
 schedule, the data and task modules, the trainer) with no warning;
-``devices`` warns that nothing reads it until ROADMAP.md queue 1 item 10.
+``devices`` (ROADMAP.md queue 1 item 10, which first left it unread) is
+stored too, and asking for more cards than are visible is a usage error.
 """
 import tests.test_torch_threads  # noqa: F401  (first: the thread share under xdist)
 import logging
@@ -61,7 +62,8 @@ def test_shared_keys_keep_the_jax_defaults(cls, caplog):
 
 
 # training keys and their consumers in the port, by config class (the
-# 'devices' case: the key that still warns, until its ROADMAP item)
+# 'devices' case: the key that warned until its ROADMAP item brought its
+# consumer)
 DEFERRED = [('lrate', 'RecognitionTrainingConfig', 1e-2, '9b'),
             ('optimizer', 'SegmentationTrainingConfig', 'SGD', '9b'),
             ('schedule', 'RecognitionTrainingConfig', 'cosine', '9b'),
@@ -82,10 +84,10 @@ SHARED_TRAINING = {
                                   'warmup', 'step_size', 'gamma', 'rop_factor', 'rop_patience',
                                   'cos_t_max', 'cos_min_lr', 'quit', 'save_top_k', 'min_epochs',
                                   'lag', 'min_delta', 'remat', 'spec', 'resize',
-                                  'freeze_backbone'),
+                                  'freeze_backbone', 'devices'),
     'SegmentationTrainingConfig': ('precision', 'batch_size', 'raise_on_error', 'bl_tol', 'spec',
                                    'resize', 'topline', 'dice_weight', 'lrate', 'optimizer'),
-    'ReadingOrderTrainingConfig': ('level', 'reading_order', 'lrate', 'optimizer'),
+    'ReadingOrderTrainingConfig': ('level', 'reading_order', 'lrate', 'optimizer', 'devices'),
     'PretrainingConfig': ('spec', 'mask_width', 'mask_prob', 'num_negatives', 'logit_temp',
                           'lrate', 'optimizer', 'gradient_clip_val', 'epochs', 'freq',
                           'schedule', 'save_top_k'),
@@ -173,15 +175,21 @@ def test_training_key_reaches_its_consumer(key, cls, value, item, caplog, tmp_pa
 
 @pytest.mark.parametrize('key, cls, value, item', [c for c in DEFERRED if c[3] != '9b'],
                          ids=[f'{k}-{c}' for k, c, _, i in DEFERRED if i != '9b'])
-def test_training_key_warns_with_its_item(key, cls, value, item, caplog):
+def test_training_key_warns_with_its_item(key, cls, value, item, caplog, monkeypatch):
+    """The key that warned until its ROADMAP item (10, multi-GPU) brought its
+    consumer: now stored with no warning, and ``ketos --devices`` with more
+    cards than are visible is a usage error naming how many are."""
+    import click
+    from kraken_tpu_torch.ketos.util import build_device_mesh
     caplog.set_level(logging.WARNING)
     kwargs = {} if 'Data' in cls else {'device': 'cpu'}
     config = getattr(configs, cls)(**kwargs, **{key: value})
-    assert not hasattr(config, key)
-    what = {'10': 'multi-GPU'}[item]
-    assert [r.getMessage() for r in caplog.records] == [
-        f'Ignoring configuration parameters {[key]}: nothing reads them until '
-        f'ROADMAP.md queue 1 item {item} ({what})']
+    assert getattr(config, key) == value
+    assert caplog.records == []
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 1)
+    with pytest.raises(click.UsageError, match=f'--devices {value} requested but only 1 CUDA'):
+        build_device_mesh(config.devices, 'cuda')
 
 
 @pytest.mark.parametrize('cls', sorted(SHARED_TRAINING))

@@ -1329,3 +1329,84 @@ def test_training_step_on_the_card_equals_the_cpu(cuda_device):
     assert abs(card_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
     for k, g in cpu_grads.items():
         assert _close(card_grads[k], g, 1e-4), k
+
+
+# the data-parallel step (kraken_tpu_torch.parallel): a small recognizer
+# (LSTM and GroupNorm layers) on a global batch of 4 lines whose labels
+# repeat no class within a line, so that F.ctc_loss's CUDA backward, which
+# adds a line's gradient into its classes with atomics, sums no two terms
+# into one element and is deterministic
+DP_SPEC = '[1,32,0,1 Cr3,3,8 Gn4 Mp2,2 S1(1x0)1,3 Lbx16 O1c12]'
+DP_RANK = """
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+import test_torch_cuda as t
+from kraken_tpu_torch.parallel import recorded_steps, shard_batch, world_from_env
+torch.backends.cudnn.deterministic = True
+world = world_from_env('cuda', backend='gloo', devices=['cuda:0', 'cuda:0'])
+try:
+    module, batch = t._dp_case(world.device)
+    module.world = world
+    out = recorded_steps(module, shard_batch(batch, world), world, 1)
+    out['mean_loss'] = world.mean(torch.tensor(out['losses'][0]))
+    torch.save(out, sys.argv[2] + f'/rank{world.rank}.pt')
+finally:
+    world.close()
+"""
+
+
+def _dp_case(device):
+    from kraken_tpu_torch.configs import RecognitionTrainingConfig
+    from kraken_tpu_torch.train.recognition import RecognitionModel
+    rng = np.random.RandomState(4)
+    batch = {'image': rng.rand(4, 1, 32, 40).astype(np.float32),
+             'seq_lens': np.array([40, 31, 17, 36], np.int32),
+             'target': np.stack([rng.permutation(np.arange(1, 12))[:5] for _ in range(4)]
+                                ).astype(np.int32),
+             'target_lens': np.array([5, 4, 3, 5], np.int32)}
+    module = RecognitionModel(RecognitionTrainingConfig(device=str(device), optimizer='SGD',
+                                                        lrate=1e-2),
+                              net=VGSLModel(DP_SPEC, generator=torch.Generator().manual_seed(0)))
+    module._place_for_training()
+    return module, batch
+
+
+@pytest.mark.cuda
+def test_nccl_step_at_world_size_1_equals_the_plain_step(cuda_device, monkeypatch):
+    """The data-parallel step on NCCL at world size 1 (the all-reduce of one
+    rank, a divide by 1) gives the plain step's loss, gradients and
+    parameters bit for bit."""
+    from kraken_tpu_torch.parallel import init_world, recorded_steps
+    from kraken_tpu_torch.parallel.launch import free_port
+    monkeypatch.setattr(torch.backends.cudnn, 'deterministic', True)
+    plain = recorded_steps(*_dp_case(cuda_device), None, 1)
+    world = init_world(1, 0, free_port(), device='cuda')
+    try:
+        module, batch = _dp_case(world.device)
+        module.world = world
+        dp = recorded_steps(module, batch, world, 1)
+    finally:
+        world.close()
+    assert dp['losses'] == plain['losses']
+    for a, b in zip(dp['grads'] + dp['params'], plain['grads'] + plain['params']):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_equal_one_process(cuda_device, monkeypatch, tmp_path):
+    """Two gloo ranks sharing the card (new processes; NCCL refuses two ranks
+    on one device), 2 lines each, against one process's step on the 4
+    lines: the loss within 1e-5, the gradients within 1e-5 of their
+    largest, the parameters after the (SGD) step within 1e-6."""
+    from kraken_tpu_torch.parallel import recorded_steps
+    from kraken_tpu_torch.parallel.launch import free_port, start_ranks
+    monkeypatch.setattr(torch.backends.cudnn, 'deterministic', True)
+    want = recorded_steps(*_dp_case(cuda_device), None, 1)
+    here = str(Path(__file__).resolve().parent)
+    start_ranks(['-c', DP_RANK, here, str(tmp_path)], 2, range(2), free_port()).wait(300)
+    got = [torch.load(tmp_path / f'rank{r}.pt', weights_only=False) for r in range(2)]
+    assert abs(got[0]['mean_loss'] - want['losses'][0]) <= 1e-5 * abs(want['losses'][0])
+    for a, b, w in zip(got[0]['grads'], got[1]['grads'], want['grads']):
+        assert torch.equal(a, b) and _close(a, w, 1e-5)
+    for a, b, w in zip(got[0]['params'], got[1]['params'], want['params']):
+        assert torch.equal(a, b) and float((a - w).abs().max()) <= 1e-6

@@ -230,6 +230,29 @@ def xml_pages():
     return JaxXMLPage(PAGE_XML).to_container(), XMLPage(PAGE_XML).to_container()
 
 
+def test_threaded_loader_dewarps_each_line_by_its_own_centerline(xml_pages):
+    """The loader's threads share the dataset's transforms, and with them one
+    CenterNormalizer; each line is measured into a copy of it, so 4 threads
+    give the batches of none and substitute no sample (sharing the measured
+    centerline, a line was dewarped by another line's or failed, and the
+    dataset put a random line in its place)."""
+    import itertools
+    from kraken_tpu_torch import codec as tc
+    from kraken_tpu_torch.dataset import recognition as tr, transforms as tt
+    from kraken_tpu_torch.dataset.loader import DataLoader, bucket_collate
+    batches = []
+    for workers in (4, 0):
+        ds = tr.PolygonGTDataset()
+        ds.add(page=xml_pages[1])
+        ds.transforms = tt.ImageInputTransforms(1, 48, 0, 1, (16, 0), valid_norm=True)
+        ds.encode(tc.Codec(''.join(sorted(ds.alphabet))))
+        loader = DataLoader(ds, batch_size=8, collate_fn=bucket_collate, num_workers=workers)
+        batches.append(list(itertools.islice(iter(loader), 3)))
+        assert not ds.failed_samples
+    for a, b in zip(*batches):
+        assert all(np.array_equal(a[k], b[k]) for k in a)
+
+
 def test_xml_dataset_equals_jax(xml_pages):
     """The fixture page's 44 transcribed lines, dewarped: the same texts, the same
     line tensors and targets."""

@@ -168,6 +168,49 @@ def test_port_runs_without_jax_or_kraken_tpu(resources):
     assert 'FORBIDDEN []' in out.stdout, out.stdout
 
 
+_RANK = """
+import json, os, sys, warnings
+warnings.filterwarnings('ignore')
+from kraken_tpu_torch.ketos import cli as ketos
+res, work, ports = sys.argv[1], sys.argv[2], sys.argv[3:]
+rank = int(os.environ['RANK'])
+runs = [['segtrain', '-s', '[1,64,0,3 Cr3,3,4,2,2 Gn2]', res + '/170025120000003,0074.xml'],
+        ['rotrain', res + '/170025120000003,0074.xml'],
+        ['pretrain', '-f', 'binary', '-s', '[1,32,0,1 Cr3,3,4,2,2 S1(1x0)1,3 Lbx8 Do0.1,2]',
+         '--mask-width', '2', '--num-negatives', '4', res + '/merge_tests/base.arrow']]
+written = {}
+for port, args in zip(ports, runs):
+    os.environ['MASTER_PORT'] = port
+    out = os.path.join(work, f'{args[0]}{rank}')
+    ketos.main(['-d', 'cpu', args[0], '--devices', '2', '-N', '1', '-o', out] + args[1:],
+               standalone_mode=False)
+    written[args[0]] = sorted(f for f in os.listdir(work) if f.startswith(f'{args[0]}{rank}_'))
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'kraken_tpu'))
+json.dump({'forbidden': bad, 'written': written}, open(os.path.join(work, f'rank{rank}.json'), 'w'))
+"""
+
+
+def test_gloo_ranks_run_without_jax_or_kraken_tpu(resources, tmp_path):
+    """Two gloo ranks, each a fresh interpreter joining the run as a rank
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT`` set, as the
+    ``ketos --devices`` launcher and ``torchrun`` set them), run ``ketos
+    segtrain``, ``rotrain`` and ``pretrain --devices 2 -d cpu`` (the Dice
+    term summed over the ranks, the reading-order MLP, the contrastive loss)
+    and never import JAX or kraken_tpu; rank 0 alone writes checkpoints."""
+    import json
+    from kraken_tpu_torch.parallel.launch import free_port, start_ranks
+    ports = [str(free_port()) for _ in range(3)]
+    start_ranks(['-c', _RANK, str(resources), str(tmp_path), *ports], 2, range(2),
+                int(ports[0]), env=subprocess_env()).wait(300)
+    out = [json.loads((tmp_path / f'rank{r}.json').read_text()) for r in range(2)]
+    assert [o['forbidden'] for o in out] == [[], []]
+    assert all(out[0]['written'][k] for k in ('segtrain', 'rotrain', 'pretrain')), out[0]
+    assert out[1]['written'] == {'segtrain': [], 'rotrain': [], 'pretrain': []}
+    from kraken_tpu_torch.models import load_models
+    assert load_models(tmp_path / 'segtrain0_best.safetensors')
+
+
 def _forbidden_imports(source: str) -> list[str]:
     """Modules of JAX or of the kraken_tpu package that `source` imports."""
     found = []
@@ -197,7 +240,8 @@ def test_source_scan_finds_no_jax_imports():
             'dataset/recognition.py', 'dataset/segmentation.py', 'dataset/arrow.py',
             'dataset/loader.py', 'dataset/utils.py', 'dataset/augmentation.py',
             'models/writers.py', 'models/_coreml_writer.py', 'pretrain/layers.py',
-            'pretrain/model.py', 'ketos/pretrain.py', 'registry.py',
+            'pretrain/model.py', 'ketos/pretrain.py', 'registry.py', 'parallel/__init__.py',
+            'parallel/mesh.py', 'parallel/launch.py', 'parallel/dryrun.py',
             'lib/functional_im_transforms.py', 'lib/exceptions.py'} <= scanned
     found = {str(p.relative_to(REPO)): _forbidden_imports(p.read_text()) for p in files}
     assert {k: v for k, v in found.items() if v} == {}
