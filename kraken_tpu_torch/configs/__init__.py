@@ -8,11 +8,15 @@ the rest up. Inference configs carry injectable function members (the CTC
 decoder, the reading-order functions) like the reference.
 
 ``device`` names a torch device and defaults to ``'cuda'``: the port runs
-on the card unless the caller asks for ``'cpu'``. The JAX package's TPU
-knobs (byte or packed input transfer, device line extraction, conv/pool
-fusion, the LSTM backend switch, multi-device meshes) have no counterpart:
-on CUDA the recurrence always runs in the port's kernel. Segmentation has
-none of the JAX package's link knobs either (``heatmap_precision``
+on the card unless the caller asks for ``'cpu'``. Recognition keeps the
+JAX package's input routes: ``input_transfer`` ('float', or the byte
+uploads 'uint8' and 'packed', the latter rebuilt on the card by the packed
+gather of ``csrc/extract.cu``) and ``line_extraction`` ('host', or
+'device': the gather-warp of ``csrc/extract.cu`` cuts the lines out of the
+page on the card). Some TPU knobs have no counterpart: conv/pool fusion,
+the LSTM backend switch (on CUDA the recurrence always runs in the port's
+kernel) and multi-device meshes. Segmentation has none of the JAX
+package's link knobs either (``heatmap_precision``
 'auto'/'uint8'/'packbits', ``input_transfer='uint8'``, ``device_vectorize``,
 ``devices>1``): the port always brings the float32 heatmaps back, the
 JAX default. Nor has it ``width_bucketing`` (a single page runs at its own
@@ -85,6 +89,16 @@ class RecognitionInferenceConfig(Config):
         bidi_reordering: reorder output into logical order via UAX #9;
                          'L'/'R' force a base direction
         text_direction: principal text direction for serialization
+        input_transfer: 'float' uploads float line batches; 'uint8' uploads
+                        them as bytes, divided by 255 on the device;
+                        'packed' uploads one dense byte atlas of the lines
+                        that the packed gather pads back on the device
+        line_extraction: 'host' cuts, dewarps and resizes the lines on the
+                         host; 'device' sends each line's sampling grid and
+                         the page's bytes, and the gather-warp builds the
+                         batch on the device (baseline segmentations of
+                         fixed-height one-channel models; others stay on
+                         the host)
     """
 
     def __init__(self, **kwargs):
@@ -98,6 +112,8 @@ class RecognitionInferenceConfig(Config):
         self.decoder = kwargs.pop('decoder', ctc.greedy_decoder)
         self.bidi_reordering = kwargs.pop('bidi_reordering', True)
         self.text_direction = kwargs.pop('text_direction', 'horizontal-tb')
+        self.input_transfer = kwargs.pop('input_transfer', 'float')
+        self.line_extraction = kwargs.pop('line_extraction', 'host')
         super().__init__(**kwargs)
 
 

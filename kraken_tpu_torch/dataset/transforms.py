@@ -5,7 +5,8 @@ kraken_tpu_torch.dataset.transforms
 Image input transforms of recognition and segmentation networks (reference:
 kraken/lib/dataset/utils.py ImageInputTransforms), a copy of the JAX
 package's ``dataset/transforms.py`` for inference. Maps PIL images to
-normalized float32 CHW numpy arrays:
+normalized float32 (or, for the byte input transfers, inverted uint8) CHW
+numpy arrays:
 
     mode conversion → centerline dewarp | resize → pad → to-array →
     scale to [0,1] → invert → permute
@@ -54,7 +55,8 @@ class ImageInputTransforms:
                  width: int,
                  channels: int,
                  pad: Union[int, tuple[int, int], tuple[int, int, int, int]],
-                 valid_norm: bool = True) -> None:
+                 valid_norm: bool = True,
+                 dtype=np.float32) -> None:
         """
         Args:
             batch: mini-batch size (kept for spec compatibility)
@@ -65,7 +67,10 @@ class ImageInputTransforms:
             pad: horizontal padding (int = left/right, 2-tuple = (l/r, t/b),
                  4-tuple = (l, t, r, b))
             valid_norm: allow centerline normalization where applicable
+            dtype: output array dtype; ``np.uint8`` gives the inverted bytes
+                   (``max - arr``) that the byte input transfers upload
         """
+        self._dtype = dtype
         self._spec = (batch, height, width, channels, pad)
         self._configure(valid_norm)
 
@@ -149,6 +154,12 @@ class ImageInputTransforms:
             arr = arr[None, :, :]
         else:
             arr = arr.transpose(2, 0, 1)
-        arr = arr.astype(np.float32) / 255.0
-        arr = arr.max() - arr
+        if self._dtype == np.uint8:
+            # max - arr on uint8 is bit-identical to round(clip(max/255 -
+            # arr/255, 0, 1) * 255): the card, which divides by 255 after
+            # the upload, sees the float pipeline's quantized payload
+            arr = arr.max() - arr
+        else:
+            arr = arr.astype(self._dtype) / 255.0
+            arr = arr.max() - arr
         return np.transpose(arr, self._perm)

@@ -12,6 +12,15 @@ Batched text recognition inference, the counterpart of the JAX package's
         argmax/max
   host: run-length grouping → codec decode → record assembly → BiDi
 
+The batch reaches the device by one of the JAX package's input routes:
+float line tensors (``input_transfer='float'``); their bytes, divided by
+255 on the device (``'uint8'``); or one dense byte atlas of the lines that
+the packed gather of ``csrc/extract.cu`` pads back (``'packed'``). With
+``line_extraction='device'`` the host computes only each line's sampling
+grid, the page's bytes stay resident on the device, and the gather-warp of
+``csrc/extract.cu`` cuts, dewarps and resizes the lines there
+(:mod:`kraken_tpu_torch.inference.extraction`).
+
 Line widths are padded up to the JAX package's geometric bucket ladder and
 the line count up to powers of two, so both packages see identically shaped
 batches and cuDNN sees few shapes. Only the (N, W) labels/confidences come
@@ -30,6 +39,7 @@ import torch
 
 from kraken_tpu_torch.containers import BaselineOCRRecord, BBoxOCRRecord
 from kraken_tpu_torch.dataset import ImageInputTransforms
+from kraken_tpu_torch.lib import telemetry
 from kraken_tpu_torch.lib.geometry import extract_polygons
 
 if TYPE_CHECKING:
@@ -117,8 +127,10 @@ def prepare_recognition(model: 'VGSLModel', config) -> None:
     """
     Configures a recognition model for inference: resolves the device
     (raising when a CUDA device is asked for and there is none), casts the
-    parameters to the precision's type and moves them there.
+    parameters to the precision's type and moves them there, and empties
+    the cache of page buffers resident on the device.
     """
+    from collections import OrderedDict
     device = resolve_device(config.device)
     dtype = _PRECISION_DTYPES.get(config.precision, torch.float32)
     model.net.to(device=device, dtype=dtype)
@@ -126,6 +138,7 @@ def prepare_recognition(model: 'VGSLModel', config) -> None:
     model._inf_config = config
     model._device = device
     model._m_dtype = dtype
+    model._page_buf_cache = OrderedDict()
 
 
 def _forward(model: 'VGSLModel', x: torch.Tensor, seq_lens: torch.Tensor, temperature: float,
@@ -151,6 +164,94 @@ def _extract_line(im, segmentation, line_idx: int, legacy: bool):
         return None, line_idx
 
 
+# the gather-warp resamples bilinearly with 2x2 supersampling, adequate
+# through mild downscale; past this factor the host's Lanczos anti-aliasing
+# differs materially, so those lines are extracted on the host and ride the
+# same batch as identity-grid pass-throughs (bit-identical to the 'uint8'
+# upload)
+DEVICE_DOWNSCALE_LIMIT = 2.0
+
+
+def _gray_page(im: 'Image.Image') -> 'Image.Image':
+    """The page in mode 'L', converted once and cached on the image."""
+    gray = getattr(im, '_kraken_gray', None)
+    if gray is None or gray.size != im.size:
+        gray = im.convert('L')
+        try:
+            im._kraken_gray = gray
+        except AttributeError:
+            pass
+    return gray
+
+
+def _produce_entries_device(model: 'VGSLModel', im: 'Image.Image',
+                            segmentation: 'Segmentation'):
+    """
+    Pixel-free line producer of device line extraction: computes each
+    line's composed sampling grid (inference.extraction) over the page
+    array, cached on the image; no warping, resizing or masking on the
+    host, and the page's pixels are uploaded once a page instead of once a
+    line. Yields the ('empty' | 'line') protocol of :func:`_produce_entries`;
+    'line' payloads carry a DeviceLine in both tensor slots (it duck-types
+    the shape and width the decode reads).
+    """
+    from kraken_tpu_torch.inference.extraction import baseline_line_desc, host_line_desc
+    config = model._inf_config
+    batch, channels, height, width = model.input
+    # bitonal pages resample with order 0 on the host (extract_polygons
+    # converts '1' to 'L' with nearest interpolation); the gather-warp is
+    # bilinear, so those pages ride the pass-through
+    force_host = im.mode == '1'
+    if im.mode != 'L':
+        im = _gray_page(im)
+    page_arr = getattr(im, '_kraken_page_array', None)
+    if page_arr is None or page_arr.shape != (im.height, im.width):
+        page_arr = np.asarray(im)
+        try:
+            im._kraken_page_array = page_arr
+        except AttributeError:
+            pass
+
+    legacy = False
+    if model.use_legacy_polygons:
+        if config.no_legacy_polygons:
+            logger.warning('Enforcing the new polygon extractor for a model trained '
+                           'with the legacy method; accuracy may be affected.')
+        else:
+            logger.info('Using legacy polygon extractor (model trained with old method).')
+            legacy = True
+
+    transforms = None
+    for line_idx, line in enumerate(segmentation.lines):
+        try:
+            desc = baseline_line_desc(page_arr, line, height, config.padding, legacy=legacy)
+        except Exception as e:
+            logger.warning(f'Line geometry failed for line {line_idx}: {e}')
+            desc = None
+        if desc is not None and (force_host or desc.scale_y > DEVICE_DOWNSCALE_LIMIT):
+            line_im, _ = _extract_line(im, segmentation, line_idx, legacy)
+            if line_im is None or 0 in line_im.size:
+                desc = None
+            else:
+                if transforms is None:
+                    transforms = ImageInputTransforms(batch, height, width, channels,
+                                                      (config.padding, 0), False)
+                try:
+                    ts = transforms(line_im)
+                    desc = (None if ts.max() == ts.min() else
+                            host_line_desc(ts, line_im.width, height, config.padding))
+                except Exception:
+                    logger.warning(f'Line tensor conversion failed for line {line_idx}.',
+                                   exc_info=True)
+                    desc = None
+        elif desc is not None:
+            desc.page = page_arr
+        if desc is None or desc.strip.size == 0 or desc.strip.max() == desc.strip.min():
+            yield 'empty', line_idx, BaselineOCRRecord('', [], [], segmentation.lines[line_idx])
+        else:
+            yield 'line', line_idx, (desc, desc, line_idx, segmentation)
+
+
 def _produce_entries(model: 'VGSLModel', im: 'Image.Image',
                      segmentation: 'Segmentation'):
     """
@@ -158,8 +259,16 @@ def _produce_entries(model: 'VGSLModel', im: 'Image.Image',
     extracts (thread pool), transforms, and yields either
     ``('empty', line_idx, record)`` for unrecognizable lines or
     ``('line', line_idx, (ts_im, line_im, line_idx, segmentation))``.
+
+    With ``config.line_extraction='device'`` (and a model and segmentation
+    the gather-warp covers) it produces coordinate descriptors instead
+    (:func:`_produce_entries_device`).
     """
     config = model._inf_config
+    from kraken_tpu_torch.inference.extraction import supports_device_extraction
+    if supports_device_extraction(model, config, segmentation.type):
+        yield from _produce_entries_device(model, im, segmentation)
+        return
     n_lines = len(segmentation.lines)
     if segmentation.type == 'baselines':
         valid_norm = False
@@ -169,21 +278,17 @@ def _produce_entries(model: 'VGSLModel', im: 'Image.Image',
         empty_cls = BBoxOCRRecord
 
     batch, channels, height, width = model.input
+    # byte uploads: the transforms give the uint8 line tensors directly
+    transfer_u8 = config.input_transfer in ('uint8', 'packed')
     transforms = ImageInputTransforms(batch, height, width, channels,
-                                      (config.padding, 0), valid_norm)
+                                      (config.padding, 0), valid_norm,
+                                      dtype=np.uint8 if transfer_u8 else np.float32)
     if transforms.mode == 'L' and im.mode == 'RGB':
         # single-channel models: convert the page once instead of every
         # warped line patch (the JAX package's order, which deviates from
         # the reference's per-line convert-after-extraction within one
         # gray level); cached on the image for repeated predictions
-        gray = getattr(im, '_kraken_gray', None)
-        if gray is None or gray.size != im.size:
-            gray = im.convert('L')
-            try:
-                im._kraken_gray = gray
-            except AttributeError:
-                pass
-        im = gray
+        im = _gray_page(im)
 
     legacy = False
     if model.use_legacy_polygons and segmentation.type == 'baselines':
@@ -351,11 +456,22 @@ def recognition_stream(model: 'VGSLModel', pages, raise_on_error: bool = False):
 
 def _dispatch_batch(model: 'VGSLModel', lines: list):
     """
-    Pads queued lines to a common bucketed width, copies the batch to the
-    model's device and launches the forward there without waiting for it;
-    returns (device outputs, line meta). Runs on the dispatcher thread, so
-    the kernels launch on that thread's current stream.
+    Pads queued lines to a common bucketed width, brings the batch to the
+    model's device by the configured input route and launches the forward
+    there without waiting for it; returns (device outputs, line meta). Runs
+    on the dispatcher thread, so the kernels launch on that thread's
+    current stream.
+
+    Routes: DeviceLine entries (device line extraction) go through the
+    gather-warp; uint8 lines with ``input_transfer='packed'`` travel as one
+    dense (c, h, sum W) atlas plus (3, n) offsets, widths and sequence
+    lengths, padded back by the packed gather (the zero padding never
+    leaves the host); otherwise the padded batch is uploaded, uint8 lines
+    as bytes divided by 255 on the device.
     """
+    from kraken_tpu_torch.inference.extraction import DeviceLine
+    from kraken_tpu_torch.ops.ctc import greedy_decoder
+    from kraken_tpu_torch.ops.extract import dequantize, packed_gather
     config = model._inf_config
     widths = [ts.shape[2] for ts, *_ in lines]
     max_w = width_bucket(max(widths))
@@ -366,17 +482,89 @@ def _dispatch_batch(model: 'VGSLModel', lines: list):
     n = min(1 << (n - 1).bit_length() if n > 1 else 1, config.batch_size) \
         if config.batch_size > 1 else n
     n = max(n, len(lines))
-    batch = np.zeros((n, c, h, max_w), np.float32)
-    for i, (ts, *_) in enumerate(lines):
-        batch[i, :, :, :ts.shape[2]] = ts
-    seq_lens = np.full((n,), max_w, np.int32)
-    seq_lens[:len(widths)] = widths
-    device = model._device
-    x = torch.from_numpy(batch).to(device=device, dtype=model._m_dtype)
-    lens = torch.from_numpy(seq_lens).to(device)
-    from kraken_tpu_torch.ops.ctc import greedy_decoder
+    device, dtype = model._device, model._m_dtype
     probs = config.return_logits or config.decoder is not greedy_decoder
+    first = lines[0][0]
+    if isinstance(first, DeviceLine):
+        x, lens = _extract_on_device(model, lines, max_w, n)
+    elif first.dtype == np.uint8 and config.input_transfer == 'packed':
+        # dense atlas: real pixels only, one geometric width bucket at the end
+        atlas = np.zeros((c, h, width_bucket(sum(widths), base=1024)), np.uint8)
+        aux = np.zeros((3, n), np.int32)
+        pos = 0
+        for i, (ts, *_) in enumerate(lines):
+            w = ts.shape[2]
+            atlas[:, :, pos:pos + w] = ts
+            aux[0, i] = pos
+            aux[1, i] = w
+            pos += w
+        aux[2] = max_w          # seq_len of batch-pad rows (as the padded path)
+        aux[2, :len(widths)] = widths
+        telemetry.record_up(atlas.nbytes + aux.nbytes)
+        aux_d = torch.from_numpy(aux).to(device)
+        x = packed_gather(torch.from_numpy(atlas).to(device), aux_d, max_w, dtype)
+        lens = aux_d[2]
+    else:
+        # the padded batch: the 'uint8' route's bytes, or float lines
+        batch = np.zeros((n, c, h, max_w), first.dtype)
+        for i, (ts, *_) in enumerate(lines):
+            batch[i, :, :, :ts.shape[2]] = ts
+        seq_lens = np.full((n,), max_w, np.int32)
+        seq_lens[:len(widths)] = widths
+        if batch.dtype == np.uint8:
+            # divided as the packed gather divides, bit for bit
+            x = dequantize(torch.from_numpy(batch).to(device), dtype)
+            telemetry.record_up(batch.nbytes + seq_lens.nbytes)
+        else:
+            x = torch.from_numpy(batch).to(device=device, dtype=dtype)
+            telemetry.record_up(x.nbytes + seq_lens.nbytes)
+        lens = torch.from_numpy(seq_lens).to(device)
     return _forward(model, x, lens, config.temperature, probs=probs), lines
+
+
+def _extract_on_device(model: 'VGSLModel', lines: list, max_w: int, n: int):
+    """
+    The batch of DeviceLine entries, built on the device by the
+    gather-warp: the page's bytes live in a buffer resident on the device
+    (an LRU cache of 4 pages on the model, each padded onto the page bucket
+    ladder); a batch uploads only its lines' grids, masks and meta rows,
+    and the strips of lines that do not gather from that page (host
+    pass-throughs, lines of another page in a cross-page batch). Returns
+    (batch, sequence lengths) on the device.
+    """
+    from kraken_tpu_torch.inference.extraction import (PAGE_BUCKET_BASE, PAGE_BUCKET_GROWTH,
+                                                       build_extract_payload, extract_batch)
+    config, device = model._inf_config, model._device
+    cache = model._page_buf_cache
+    page_arr = next((e[0].page for e in lines if e[0].page is not None), None)
+    page_buf, page_len, page_w, page_offs = None, 0, 0, None
+    if page_arr is not None:
+        key = id(page_arr)
+        if key not in cache:
+            flat = page_arr.reshape(-1)
+            buf = np.zeros(width_bucket(flat.size, base=PAGE_BUCKET_BASE,
+                                        growth=PAGE_BUCKET_GROWTH), np.uint8)
+            buf[:flat.size] = flat
+            telemetry.record_up(buf.nbytes)
+            # the source array stays referenced, so its id stays unique
+            cache[key] = (page_arr, torch.from_numpy(buf).to(device))
+            while len(cache) > 4:
+                cache.popitem(last=False)
+        else:
+            cache.move_to_end(key)
+        page_buf = cache[key][1]
+        page_len, page_w = page_buf.numel(), page_arr.shape[1]
+        # a batch may mix pages: lines of other pages pack their strips
+        page_offs = [e[0].page_off if e[0].page is page_arr else -1 for e in lines]
+    atlas, grid, mask, meta = build_extract_payload(
+        [entry[0] for entry in lines], max_w, n, config.padding, page_len, page_w, page_offs)
+    telemetry.record_up(atlas.nbytes + grid.nbytes + mask.nbytes + meta.nbytes)
+    atlas_d = torch.from_numpy(atlas).to(device)
+    buf_d = atlas_d if page_buf is None else torch.cat([page_buf, atlas_d])
+    meta_d = torch.from_numpy(meta).to(device)
+    x = extract_batch(buf_d, torch.from_numpy(grid).to(device), torch.from_numpy(mask).to(device),
+                      meta_d, max_w, model.input[2], dtype=model._m_dtype)
+    return x, meta_d[:, 4].contiguous()
 
 
 def _decode_batch_results(model: 'VGSLModel', outputs, lines: list):
@@ -390,6 +578,7 @@ def _decode_batch_results(model: 'VGSLModel', outputs, lines: list):
     labels = labels.cpu().numpy()
     confs = confs.cpu().numpy()
     olens = olens.cpu().numpy()
+    telemetry.record_down(labels.nbytes + confs.nbytes + olens.nbytes)
 
     from kraken_tpu_torch.ops.ctc import _group_runs, greedy_decoder
     use_fast_path = config.decoder is greedy_decoder
@@ -397,6 +586,7 @@ def _decode_batch_results(model: 'VGSLModel', outputs, lines: list):
     # consumes them: a custom decoder or return_logits
     if config.return_logits or not use_fast_path:
         model.outputs = probs.cpu().numpy()
+        telemetry.record_down(model.outputs.nbytes)
     else:
         model.outputs = None
 

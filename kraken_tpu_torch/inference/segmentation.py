@@ -27,6 +27,7 @@ import torch
 
 from kraken_tpu_torch.containers import BaselineLine, Region, Segmentation
 from kraken_tpu_torch.dataset import ImageInputTransforms
+from kraken_tpu_torch.lib import telemetry
 from kraken_tpu_torch.lib.geometry import (line_midpoint, points_in_polygon,
                                            scale_polygonal_lines, scale_regions)
 from kraken_tpu_torch.lib.polygonization import gradient_feature_map, polygonize_page
@@ -225,6 +226,7 @@ def _compute_segmentation_maps(model: 'VGSLModel', ims: list) -> list[dict[str, 
         stack[i, :, :, :p['tensor'].shape[2]] = p['tensor']
     max_padded_h = max(p['padded_h'] for p in pages)
     x = torch.from_numpy(stack).to(device=model._device, dtype=model._m_dtype)
+    telemetry.record_up(x.nbytes)
     widths = [p['tensor'].shape[2] for p in pages]
     seq_lens = None
     if any(w != max_w for w in widths):
@@ -232,6 +234,7 @@ def _compute_segmentation_maps(model: 'VGSLModel', ims: list) -> list[dict[str, 
     heat_all, ridges_all = _seg_forward(model, x, max_padded_h, max_w, seq_lens)
     heat_all = heat_all.cpu().numpy()
     ridges_all = ridges_all.cpu().numpy() if ridges_all is not None else None
+    telemetry.record_down(heat_all.nbytes + (ridges_all.nbytes if ridges_all is not None else 0))
 
     results = []
     for i, p in enumerate(pages):

@@ -12,9 +12,10 @@ script.
 It runs on the card: ``--device`` defaults to ``cuda`` and a run without a
 card stops with a usage error unless it asks for ``--device cpu``
 (``binarize`` on the host, its default, needs no card but the check is the
-same for every run). The TPU-link options (``--transfer``, ``--devices``,
-``--device-vectorize``) and the model repository commands (``list``,
-``get``, ``show`` of a remote model) are not ported.
+same for every run). ``ocr --transfer bytes`` uploads line batches as a
+dense byte atlas (``input_transfer='packed'``). Not yet ported: ``segment
+--transfer``, ``--devices``, ``--device-vectorize``; the model repository
+commands (``list``, ``get``, ``show`` of a remote model) are not ported.
 """
 import dataclasses
 import logging
@@ -514,8 +515,13 @@ def segment(ctx, model, boxes, text_direction, legacy_scale, legacy_maxcolseps,
               help='CTC decoding strategy.')
 @click.option('--beam-size', default=3, type=int,
               help='Beam width for the beam decoder.')
+@click.option('--transfer', default='float', type=click.Choice(['float', 'bytes']),
+              help='Upload format of line batches: "bytes" uploads them as one dense '
+                   'uint8 atlas that the packed gather pads back on the device '
+                   '(identical activations to a byte upload of the padded batch).')
 def ocr(ctx, model, batch_size, pad, temperature, num_line_workers, reorder, base_dir,
-        no_segmentation, text_direction, no_legacy_polygons, linetype, decoder, beam_size):
+        no_segmentation, text_direction, no_legacy_polygons, linetype, decoder, beam_size,
+        transfer):
     """
     Recognizes text in line images.
     """
@@ -551,6 +557,7 @@ def ocr(ctx, model, batch_size, pad, temperature, num_line_workers, reorder, bas
                                         bidi_reordering=bidi,
                                         text_direction=text_direction,
                                         no_legacy_polygons=no_legacy_polygons,
+                                        input_transfer='packed' if transfer == 'bytes' else 'float',
                                         device=ctx.meta['device'],
                                         precision=ctx.meta['precision'],
                                         raise_on_error=ctx.meta['raise_failed'])

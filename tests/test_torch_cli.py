@@ -258,7 +258,6 @@ def test_without_a_card_the_default_device_fails(monkeypatch, tmp_path):
     (['segment', '-bl', '--transfer', 'bytes'], 'No such option'),
     (['segment', '-bl', '--devices', '2'], 'No such option'),
     (['segment', '-bl', '--device-vectorize'], 'No such option'),
-    (['ocr', '-m', 'x', '--transfer', 'bytes'], 'No such option'),
     (['ocr', '-m', 'x', '--devices', '2'], 'No such option'),
     (['list'], 'No such command'),
     (['get', 'x'], 'No such command'),

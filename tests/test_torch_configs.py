@@ -32,7 +32,8 @@ RECORDED = [('accelerator', 'RecognitionInferenceConfig', 'cpu'),
 SHARED = {'RecognitionInferenceConfig': ('precision', 'batch_size', 'raise_on_error',
                                          'temperature', 'return_logits', 'return_line_image',
                                          'padding', 'num_line_workers', 'no_legacy_polygons',
-                                         'bidi_reordering', 'text_direction'),
+                                         'bidi_reordering', 'text_direction', 'input_transfer',
+                                         'line_extraction'),
           'SegmentationInferenceConfig': ('precision', 'batch_size', 'raise_on_error',
                                           'text_direction', 'legacy_scale', 'legacy_maxcolseps',
                                           'legacy_black_colseps', 'legacy_no_hlines',

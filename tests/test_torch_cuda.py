@@ -1410,3 +1410,97 @@ def test_two_gloo_ranks_on_one_card_equal_one_process(cuda_device, monkeypatch, 
         assert torch.equal(a, b) and _close(a, w, 1e-5)
     for a, b, w in zip(got[0]['params'], got[1]['params'], want['params']):
         assert torch.equal(a, b) and float((a - w).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_extract_kernel_matches_plain(cuda_device):
+    """The gather-warp of csrc/extract.cu against its plain version at
+    chip_smoke.py's phase-25 cases (affine, mesh and Delaunay warps,
+    downscaled with supersampling and upscaled without, page-resident lines
+    beside packed strips, host pass-throughs), fp32 and bf16; identity grids
+    bit for bit."""
+    from kraken_tpu_torch.ops.extract import extract_batch, extract_batch_reference
+    cases = SMOKE.extract_cases()
+    assert {tag for tag, *_ in cases} == {'30-affine-mesh', '30-legacy', '120-affine-mesh',
+                                          '120-legacy', 'pass-through'}
+    for tag, buf, grid, mask, meta, max_w, height in cases:
+        args = [torch.from_numpy(a).to(cuda_device) for a in (buf, grid, mask, meta)]
+        for dtype in (torch.float32, torch.bfloat16):
+            before = extract_batch.launches
+            out = extract_batch(*args, max_w, height, dtype=dtype)
+            ref = extract_batch_reference(*args, max_w, height, dtype=dtype)
+            torch.cuda.synchronize()
+            assert extract_batch.launches == before + 1
+            assert out.shape == (len(meta), 1, height, max_w) and out.dtype == dtype
+            assert (out.float() - ref.float()).abs().max().item() <= SMOKE.EXTRACT_ATOL[dtype], tag
+            if tag == 'pass-through':
+                assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', range(len(SMOKE.PACKED_CASES)))
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
+def test_packed_gather_matches_plain_and_uint8_route(cuda_device, case, dtype):
+    from kraken_tpu_torch.ops.extract import packed_gather
+    (c, h), widths = SMOKE.PACKED_CASES[case]
+    atlas, aux, max_w = SMOKE.packed_case(widths, c, h, case)
+    before = packed_gather.launches
+    row = SMOKE.check_packed(torch.from_numpy(atlas).to(cuda_device),
+                             torch.from_numpy(aux).to(cuda_device), max_w, dtype)
+    assert packed_gather.launches == before + 1
+    assert row['bitwise_equal'] and row['uint8_route_bitwise_equal'], row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('bad', ['buf_dtype', 'grid_device', 'meta_strided', 'out_dtype'])
+def test_extract_wrappers_raise(cuda_device, bad):
+    from kraken_tpu_torch.ops.extract import extract_batch, packed_gather
+    buf = torch.zeros(4096, dtype=torch.float32 if bad == 'buf_dtype' else torch.uint8,
+                      device=cuda_device)
+    grid = torch.zeros(2, 129, 3, 3, device='cpu' if bad == 'grid_device' else cuda_device)
+    mask = torch.zeros(2, 65, 2, device=cuda_device)
+    meta = torch.zeros(2, 16, dtype=torch.int32, device=cuda_device)
+    meta = meta[:, ::2] if bad == 'meta_strided' else meta[:, :8].contiguous()
+    dtype = torch.float64 if bad == 'out_dtype' else torch.float32
+    with pytest.raises((ValueError, TypeError)):
+        extract_batch(buf, grid, mask, meta, 16, 8, dtype=dtype)
+    if bad == 'out_dtype':
+        atlas = torch.zeros(1, 8, 64, dtype=torch.uint8, device=cuda_device)
+        aux = torch.zeros(3, 2, dtype=torch.int32, device=cuda_device)
+        with pytest.raises(TypeError):
+            packed_gather(atlas, aux, 16, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('route', [{'line_extraction': 'device'}, {'input_transfer': 'packed'}])
+def test_input_routes_on_the_card_equal_the_cpu(cuda_device, route):
+    """The fixture line's five baselines (tests/test_rpred.py:201) through
+    each route on the card and on the CPU: the same records, the route's
+    kernel launched once a batch."""
+    from PIL import Image
+    from kraken_tpu_torch.configs import RecognitionInferenceConfig
+    from kraken_tpu_torch.containers import BaselineLine, Segmentation
+    from kraken_tpu_torch.models import load_models
+    from kraken_tpu_torch.ops.extract import extract_batch, packed_gather
+    seg = Segmentation(type='baselines', imagename=RESOURCES / 'bw.png',
+                       text_direction='horizontal-lr', script_detection=False,
+                       lines=[BaselineLine(id=f'l{i}', baseline=[[0, 10], [x1, 10]],
+                                           boundary=[[0, 0], [x1, 0], [x1, 155], [0, 155]])
+                              for i, x1 in enumerate((2543, 1800, 1200, 900, 2543))])
+    im = Image.open(RESOURCES / '000236.png')
+    records, launched = {}, {}
+    for device in ('cuda', 'cpu'):
+        model = load_models(RESOURCES / 'overfit_bl_newpoly.safetensors')[0]
+        model.prepare_for_inference(RecognitionInferenceConfig(
+            device=device, batch_size=4, num_line_workers=0, padding=1, **route))
+        before = (extract_batch.launches, packed_gather.launches)
+        records[device] = list(model.predict(im, seg))
+        launched[device] = tuple(k.launches - b for k, b in zip((extract_batch, packed_gather),
+                                                               before))
+    # the lines are downscaled more than twice: the device route's batches
+    # are host pass-throughs, still built by the gather-warp
+    assert launched == {'cuda': (2, 0) if 'line_extraction' in route else (0, 2),
+                        'cpu': (0, 0)}
+    for a, b in zip(records['cuda'], records['cpu']):
+        assert a.prediction == b.prediction and a.cuts == b.cuts
+        np.testing.assert_allclose(a.confidences, b.confidences, atol=1e-4)

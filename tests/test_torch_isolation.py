@@ -49,6 +49,13 @@ seg = Segmentation(type='baselines', imagename=res + '/bw.png', text_direction='
                    lines=[BaselineLine(id='l0', baseline=[[0, 10], [2543, 10]],
                                        boundary=[[0, 0], [2543, 0], [2543, 155], [0, 155]])])
 assert len(list(vmodel.predict(Image.open(res + '/000236.png'), seg))) == 1
+from kraken_tpu_torch.lib import telemetry
+for route in ({'line_extraction': 'device'}, {'input_transfer': 'packed'}):
+    vmodel.prepare_for_inference(RecognitionInferenceConfig(device='cpu', num_line_workers=0,
+                                                            **route))
+    with telemetry.collect() as stats:
+        assert len(list(vmodel.predict(Image.open(res + '/000236.png'), seg))) == 1
+    assert stats.up_bytes > 0
 from kraken_tpu_torch import blla, native
 from kraken_tpu_torch.configs import SegmentationInferenceConfig
 from kraken_tpu_torch.tasks import SegmentationTaskModel
@@ -153,7 +160,8 @@ print('FORBIDDEN', bad)
 
 def test_port_runs_without_jax_or_kraken_tpu(resources):
     """A fresh interpreter runs the port's recognition forward and engine
-    (an ocropy and a transformer network among them), its segmentation (the task model and the legacy ``blla.segment``), its
+    (an ocropy and a transformer network among them; device line extraction
+    and the packed byte upload), its segmentation (the task model and the legacy ``blla.segment``), its
     forced alignment, its neural reading order, its CLI (``segment -bl
     ocr`` to ALTO), its page pipeline, the host and the device nlbin, the
     legacy box segmenter, the PDF extractor, ``ketos test`` on path input,
@@ -242,7 +250,8 @@ def test_source_scan_finds_no_jax_imports():
             'models/writers.py', 'models/_coreml_writer.py', 'pretrain/layers.py',
             'pretrain/model.py', 'ketos/pretrain.py', 'registry.py', 'parallel/__init__.py',
             'parallel/mesh.py', 'parallel/launch.py', 'parallel/dryrun.py',
-            'lib/functional_im_transforms.py', 'lib/exceptions.py'} <= scanned
+            'lib/functional_im_transforms.py', 'lib/exceptions.py', 'inference/extraction.py',
+            'ops/extract.py', 'lib/telemetry.py'} <= scanned
     found = {str(p.relative_to(REPO)): _forbidden_imports(p.read_text()) for p in files}
     assert {k: v for k, v in found.items() if v} == {}
 
