@@ -15,13 +15,16 @@ gather of ``csrc/extract.cu``) and ``line_extraction`` ('host', or
 'device': the gather-warp of ``csrc/extract.cu`` cuts the lines out of the
 page on the card). Some TPU knobs have no counterpart: conv/pool fusion,
 the LSTM backend switch (on CUDA the recurrence always runs in the port's
-kernel) and multi-device meshes. Segmentation has none of the JAX
-package's link knobs either (``heatmap_precision``
-'auto'/'uint8'/'packbits', ``input_transfer='uint8'``, ``device_vectorize``,
-``devices>1``): the port always brings the float32 heatmaps back, the
-JAX default. Nor has it ``width_bucketing`` (a single page runs at its own
-width; only a page batch is padded to a common bucket) or ``fused_ridge``
-(the ridge filter of the baseline channels always runs in the forward).
+kernel) and multi-device meshes. Segmentation keeps the JAX package's
+link options: ``heatmap_precision`` ('float32', the default; 'uint8', the
+heatmaps quantized on the card; 'packbits', the decision masks bit-packed
+on the card; 'auto', which probes the upload rate once), ``input_transfer``
+('float', or 'uint8': the page uploaded as bytes), ``device_vectorize``
+(the page's seam DPs in one launch of the seam kernel) and
+``width_bucketing``. It has no ``devices`` (inference over several cards is
+ROADMAP queue 1 item 16) and no ``fused_ridge`` (the ridge filter of the
+baseline channels always runs in the forward; ``fused_ridge=False`` is
+queue 1 item 15c): those keys warn.
 Nor has it ``accelerator`` (``device`` names the device), ``compile``
 (XLA compile options; torch runs eagerly) or ``device_pipeline_depth``
 (the recognition engine keeps one batch in flight, the JAX default), nor
@@ -127,6 +130,22 @@ class SegmentationInferenceConfig(Config):
                        (l/r, t/b) or (l, r, t, b))
         bbox_ro_fn / baseline_ro_fn: injectable reading-order functions
         ridge_threshold: threshold of the ridge response
+        width_bucketing: pad a single page's width up to a geometric bucket
+                     before the forward too (a page batch always is)
+        heatmap_precision: what the forward sends back: 'float32' the
+                     heatmaps and the ridge masks; 'uint8' the heatmaps as
+                     round(p * 255) bytes and the ridge masks; 'packbits'
+                     only the masks the host reads (regions > 0.5, the two
+                     separator-orientation masks of the 20x20 max-filtered
+                     start/end maps, the ridge masks), 8 pixels a byte
+                     (needs a baseline class mapping with both separators,
+                     else 'uint8'); 'auto' probes the upload rate once and
+                     takes 'packbits' below 500 Mbit/s, else 'uint8'
+        input_transfer: 'float' uploads the page as floats; 'uint8' as
+                     bytes, divided by 255 on the device
+        device_vectorize: carve every seam of a page's polygonization in
+                     one launch of the seam kernel on the device (the same
+                     polygons as the host DP)
         legacy_*, bbox_line_padding: parameters of the legacy bbox page
                      segmenter (``pageseg.segment``)
     """
@@ -143,6 +162,10 @@ class SegmentationInferenceConfig(Config):
         self.bbox_ro_fn = kwargs.pop('bbox_ro_fn', geometry.reading_order)
         self.baseline_ro_fn = kwargs.pop('baseline_ro_fn', geometry.polygonal_reading_order)
         self.ridge_threshold = kwargs.pop('ridge_threshold', 0.17)
+        self.width_bucketing = kwargs.pop('width_bucketing', False)
+        self.heatmap_precision = kwargs.pop('heatmap_precision', 'float32')
+        self.device_vectorize = kwargs.pop('device_vectorize', False)
+        self.input_transfer = kwargs.pop('input_transfer', 'float')
         super().__init__(**kwargs)
 
 

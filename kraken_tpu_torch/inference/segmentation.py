@@ -13,12 +13,20 @@ package's ``inference/segmentation.py``:
   host: baseline/region vectorization → seam-carve polygonization → region
         association → reading order
 
-Only the float32 heatmaps and the uint8 ridge masks come back to the host.
-The JAX package's TPU-link options (quantized or bit-packed heatmaps, byte
-page uploads, device vectorization, multi-device meshes) have no
-counterpart here.
+The configuration picks what crosses the link, as in the JAX package:
+the page goes up as floats or, with ``input_transfer='uint8'``, as bytes
+divided by 255 on the device; ``heatmap_precision`` brings back the
+float32 heatmaps and the uint8 ridge masks ('float32'), the heatmaps
+quantized to bytes by ``ops/segmask.quantize_u8`` and the ridge masks
+('uint8'), or only the masks the host reads, bit-packed by
+``ops/segmask.pack_masks`` after the 20×20 max filter of the separator maps
+(``ops/segmask.maxpool20``) ('packbits'); 'auto' picks one of the last two
+from a one-off upload probe. ``device_vectorize`` carves every seam of a
+page in one launch of ``ops/seam.py``'s kernel. Inference over several
+cards (the JAX package's ``devices``) is not ported.
 """
 import logging
+import threading
 import uuid
 from typing import TYPE_CHECKING, Any, Optional
 
@@ -35,6 +43,7 @@ from kraken_tpu_torch.lib.util import is_bitonal
 from kraken_tpu_torch.lib.vectorization import vectorize_lines, vectorize_regions
 from kraken_tpu_torch.ops.ridge import sato_ridge_threshold, upload_bank
 from kraken_tpu_torch.ops.seghead import seg_head
+from kraken_tpu_torch.ops.segmask import maxpool20, pack_masks, probe_link_mbps, quantize_u8
 
 if TYPE_CHECKING:
     from PIL import Image
@@ -46,6 +55,11 @@ __all__ = ['prepare_segmentation', 'segmentation_pred',
            'segmentation_pred_batch', 'vec_regions', 'vec_lines']
 
 
+# the link probe of heatmap_precision='auto' runs once for a model's route
+# key; the pipeline's prefetch threads prepare the model for every page
+_ROUTE_LOCK = threading.Lock()
+
+
 def prepare_segmentation(model: 'VGSLModel', config) -> None:
     """
     Configures a segmentation model for inference: resolves the device
@@ -53,7 +67,11 @@ def prepare_segmentation(model: 'VGSLModel', config) -> None:
     parameters to the precision's type and moves them there, picks the
     baseline channels the ridge filter runs on and, on a CUDA device,
     uploads the ridge kernel's bank (once per device: the task model
-    prepares its models for every page).
+    prepares its models for every page). Then the transfer route, as the
+    JAX package picks it: 'auto' probes the upload rate once for each
+    (device, input_transfer, heatmap_precision) and takes 'packbits' below
+    500 Mbit/s, else 'uint8'; 'packbits' falls back to 'uint8' where the
+    class mapping has no baseline channel or lacks a separator.
     """
     from kraken_tpu_torch.inference.recognition import _PRECISION_DTYPES, resolve_device
     device = resolve_device(config.device)
@@ -68,23 +86,58 @@ def prepare_segmentation(model: 'VGSLModel', config) -> None:
     model._seg_ridge_threshold = float(config.ridge_threshold)
     if device.type == 'cuda' and model._seg_fused_channels:
         upload_bank(device)
+    model._seg_dequant = config.input_transfer == 'uint8'
+    key = (str(device), config.input_transfer, config.heatmap_precision)
+    with _ROUTE_LOCK:
+        if getattr(model, '_seg_route_key', None) != key:
+            hm_prec = config.heatmap_precision
+            if hm_prec == 'auto':
+                # a slow link: every byte counts, so the packed masks; local
+                # PCIe: the quantized heatmaps
+                hm_prec = 'packbits' if probe_link_mbps(device) < 500 else 'uint8'
+            aux = cls_map.get('aux', {})
+            if hm_prec == 'packbits' and (not model._seg_fused_channels
+                                          or '_start_separator' not in aux
+                                          or '_end_separator' not in aux):
+                hm_prec = 'uint8'  # the packed masks need the ridge and both separators
+            model._seg_transfer = hm_prec
+            model._seg_route_key = key
+    model._seg_packed_regions = tuple(sorted(cls_map.get('regions', {}).values()))
+    if model._seg_transfer == 'packbits':
+        model._seg_separators = (cls_map['aux']['_start_separator'],
+                                 cls_map['aux']['_end_separator'])
 
 
 def _seg_forward(model: 'VGSLModel', x: torch.Tensor, out_h: int, out_w: int,
                  seq_lens: Optional[torch.Tensor] = None):
     """
-    The device half: network → upsample + sigmoid → ridge + threshold of
-    the baseline channels (the ridge reads the full-precision sigmoid).
-    Returns (float32 heatmaps, uint8 ridge masks or None).
+    The device half: (a byte page divided by 255) → network → upsample +
+    sigmoid → ridge + threshold of the baseline channels (the ridge reads
+    the full-precision sigmoid), then what the route sends back. Returns
+    (float32 heatmaps or, for 'uint8', their bytes; uint8 ridge masks or
+    None), or for 'packbits' (the packed masks, None).
     """
     from kraken_tpu_torch.inference.recognition import _precise_fp32
+    from kraken_tpu_torch.ops.extract import dequantize
     with torch.inference_mode(), _precise_fp32(model._m_dtype):
+        if model._seg_dequant:
+            x = dequantize(x, model._m_dtype)
         logits, _ = model.net(x, seq_lens)
         probs = seg_head(logits.contiguous(), out_h, out_w)
         bins = None
         if model._seg_fused_channels:
             bins = sato_ridge_threshold(probs, model._seg_fused_channels,
                                         model._seg_ridge_threshold)
+        if model._seg_transfer == 'packbits':
+            # the host reads the two max-filtered separator maps only
+            # through the signs of their difference against ±0.2: send the
+            # two decision masks, computed from the full-precision sigmoid
+            n, _, h, w = probs.shape
+            seps = probs[:, list(model._seg_separators)].reshape(n * 2, h, w)
+            filt = maxpool20(seps).reshape(n, 2, h, w)
+            return pack_masks(probs, model._seg_packed_regions, filt, bins), None
+        if model._seg_transfer == 'uint8':
+            probs = quantize_u8(probs)
     return probs, bins
 
 
@@ -110,6 +163,9 @@ def vec_lines(heatmap: np.ndarray,
               suppl_obj: list = None,
               topline: bool = False,
               raise_on_error: bool = False,
+              device_vectorize: bool = False,
+              sep_filters: Optional[tuple] = None,
+              device='cuda',
               **kwargs) -> list[dict[str, Any]]:
     """
     Vectorizes and polygonizes all baseline classes of the heatmap stack.
@@ -117,15 +173,24 @@ def vec_lines(heatmap: np.ndarray,
     Args:
         bin_maps: thresholded ridge maps per baseline channel, from the
             ridge kernel of the forward.
+        device_vectorize: carve the page's seams in one launch of the seam
+            kernel on `device` (``ops/seam.py``; ``'cpu'`` runs its plain
+            version) instead of the host DP: the same polygons. The ridge
+            filter runs in the forward whatever this says.
+        sep_filters: the (start, end) separator maps after the 20x20 max
+            filter, or the 0/1 masks of their difference's signs that the
+            'packbits' route sends (both give the same orientation
+            decisions); computed on the host from the heatmaps otherwise.
 
     Returns:
         list of dicts with tags/baseline/boundary per line.
     """
     st_sep = cls_map['aux']['_start_separator']
     end_sep = cls_map['aux']['_end_separator']
-    from kraken_tpu_torch.lib.fastfilters import maximum_filter
-    sep_filters = (maximum_filter(heatmap[st_sep], size=20),
-                   maximum_filter(heatmap[end_sep], size=20))
+    if sep_filters is None:
+        from kraken_tpu_torch.lib.fastfilters import maximum_filter
+        sep_filters = (maximum_filter(heatmap[st_sep], size=20),
+                       maximum_filter(heatmap[end_sep], size=20))
     baselines = []
     for bl_type, idx in cls_map['baselines'].items():
         logger.debug(f'Extracting baselines for class {bl_type}')
@@ -147,7 +212,8 @@ def vec_lines(heatmap: np.ndarray,
         other = [b for _, b in baselines[:idx] + baselines[idx + 1:]]
         other.extend(reg for reg_i, reg in enumerate(regions) if in_reg[reg_i, idx])
         jobs.append((bl, other))
-    pols = polygonize_page(jobs, im_feats, topline=topline, raise_on_error=raise_on_error)
+    pols = polygonize_page(jobs, im_feats, topline=topline, raise_on_error=raise_on_error,
+                           seam_carver='device' if device_vectorize else 'host', device=device)
     lines = [(bl_type, bl, pol)
              for (bl_type, bl), pol in zip(baselines, pols) if pol is not None]
     scaled = scale_polygonal_lines([x[1:] for x in lines], scale)
@@ -196,7 +262,9 @@ def _compute_segmentation_maps(model: 'VGSLModel', ims: list) -> list[dict[str, 
     elif len(padding) == 2:
         padding = (padding[0], padding[0], padding[1], padding[1])
 
-    transforms = ImageInputTransforms(batch, height, width, channels, padding, valid_norm=False)
+    transfer_u8 = config.input_transfer == 'uint8'
+    transforms = ImageInputTransforms(batch, height, width, channels, padding, valid_norm=False,
+                                      dtype=np.uint8 if transfer_u8 else np.float32)
     pages = []
     for im in ims:
         # scaled grayscale image (pre-tensor stage of the transform pipeline)
@@ -218,42 +286,78 @@ def _compute_segmentation_maps(model: 'VGSLModel', ims: list) -> list[dict[str, 
                 for r in _compute_segmentation_maps(model, [p['im']])]
 
     max_w = max(p['tensor'].shape[2] for p in pages)
-    if len(pages) > 1:
+    if config.width_bucketing or len(pages) > 1:
         max_w = width_bucket(max_w)
     stack = np.zeros((len(pages), pages[0]['tensor'].shape[0],
-                      pages[0]['tensor'].shape[1], max_w), np.float32)
+                      pages[0]['tensor'].shape[1], max_w),
+                     np.uint8 if transfer_u8 else np.float32)
     for i, p in enumerate(pages):
         stack[i, :, :, :p['tensor'].shape[2]] = p['tensor']
     max_padded_h = max(p['padded_h'] for p in pages)
-    x = torch.from_numpy(stack).to(device=model._device, dtype=model._m_dtype)
+    x = torch.from_numpy(stack).to(device=model._device)
+    if not transfer_u8:
+        x = x.to(model._m_dtype)
     telemetry.record_up(x.nbytes)
     widths = [p['tensor'].shape[2] for p in pages]
     seq_lens = None
     if any(w != max_w for w in widths):
         seq_lens = torch.tensor(widths, dtype=torch.int32, device=model._device)
     heat_all, ridges_all = _seg_forward(model, x, max_padded_h, max_w, seq_lens)
+    cls_map = model.user_metadata['class_mapping']
+    bounding_regions = model.user_metadata.get('bounding_regions', None)
+
+    def crop(m: np.ndarray, p: dict) -> np.ndarray:
+        """A page's maps out of the bucket, without the input padding."""
+        m = m[:, :p['padded_h'], :p['padded_w']]
+        return m[:, padding[2]:m.shape[1] - padding[3] or None,
+                 padding[0]:m.shape[2] - padding[1] or None]
+
+    if model._seg_transfer == 'packbits':
+        packed_all = heat_all.cpu().numpy()  # (n, K, h, ceil(w / 8)) uint8
+        telemetry.record_down(packed_all.nbytes)
+        n_classes = 1 + max(c for grp in cls_map.values() for c in grp.values())
+        n_reg = len(model._seg_packed_regions)
+        results = []
+        for i, p in enumerate(pages):
+            m = crop(np.unpackbits(packed_all[i], axis=-1), p)
+            # a boolean stand-in for the heatmap stack: the region channels
+            # carry their masks (vec_regions' > 0.5 keeps them as they are);
+            # the baseline and separator channels are read through bin_maps
+            # and sep_filters instead and stay empty
+            heat = np.zeros((n_classes,) + m.shape[1:], bool)
+            for j, c in enumerate(model._seg_packed_regions):
+                heat[c] = m[j]
+            sep_filters = (m[n_reg].astype(np.float32), m[n_reg + 1].astype(np.float32))
+            bin_maps = {c: m[n_reg + 2 + j].astype(bool)
+                        for j, c in enumerate(model._seg_fused_channels)}
+            results.append({'heatmap': heat,
+                            'cls_map': cls_map,
+                            'bounding_regions': bounding_regions,
+                            'scale': np.divide(p['im'].size, heat.shape[:0:-1]),
+                            'scal_im': p['scal_im'],
+                            'bin_maps': bin_maps,
+                            'sep_filters': sep_filters})
+        return results
+
     heat_all = heat_all.cpu().numpy()
     ridges_all = ridges_all.cpu().numpy() if ridges_all is not None else None
     telemetry.record_down(heat_all.nbytes + (ridges_all.nbytes if ridges_all is not None else 0))
 
     results = []
     for i, p in enumerate(pages):
-        padded_w = p['padded_w']
         bin_maps = {}
         if ridges_all is not None:
-            ridges = ridges_all[i][:, :p['padded_h'], :padded_w]
-            ridges = ridges[:, padding[2]:ridges.shape[1] - padding[3] or None,
-                            padding[0]:ridges.shape[2] - padding[1] or None]
+            ridges = crop(ridges_all[i], p)
             bin_maps = {c: ridges[j].astype(bool)
                         for j, c in enumerate(model._seg_fused_channels)}
-        heat = heat_all[i][:, :p['padded_h'], :padded_w]
-        # strip padding
-        heat = heat[:, padding[2]:heat.shape[1] - padding[3] or None,
-                    padding[0]:heat.shape[2] - padding[1] or None]
+        heat = heat_all[i][:, :p['padded_h'], :p['padded_w']]
+        if heat.dtype == np.uint8:
+            heat = heat.astype(np.float32) / 255.0
+        heat = crop(heat, p)
         scale = np.divide(p['im'].size, heat.shape[:0:-1])
         results.append({'heatmap': heat,
-                        'cls_map': model.user_metadata['class_mapping'],
-                        'bounding_regions': model.user_metadata.get('bounding_regions', None),
+                        'cls_map': cls_map,
+                        'bounding_regions': bounding_regions,
                         'scale': scale,
                         'scal_im': p['scal_im'],
                         'bin_maps': bin_maps})
@@ -303,7 +407,9 @@ def _vectorize_page(model: 'VGSLModel', im: 'Image.Image', rets: dict) -> Segmen
                       text_direction=config.text_direction,
                       suppl_obj=suppl_obj,
                       topline=bool(model.user_metadata.get('topline', False)),
-                      raise_on_error=config.raise_on_error)
+                      raise_on_error=config.raise_on_error,
+                      device_vectorize=config.device_vectorize,
+                      device=model._device)
 
     script_detection = len(rets['cls_map']['baselines']) > 1
 

@@ -13,9 +13,13 @@ It runs on the card: ``--device`` defaults to ``cuda`` and a run without a
 card stops with a usage error unless it asks for ``--device cpu``
 (``binarize`` on the host, its default, needs no card but the check is the
 same for every run). ``ocr --transfer bytes`` uploads line batches as a
-dense byte atlas (``input_transfer='packed'``). Not yet ported: ``segment
---transfer``, ``--devices``, ``--device-vectorize``; the model repository
-commands (``list``, ``get``, ``show`` of a remote model) are not ported.
+dense byte atlas (``input_transfer='packed'``); ``segment --transfer
+bytes`` uploads the page as bytes and lets a one-off upload probe pick the
+heatmap download (``input_transfer='uint8'``, ``heatmap_precision=
+'auto'``), and ``segment --device-vectorize`` carves a page's seams in one
+launch on the card. Not yet ported: ``segment --devices``; the model
+repository commands (``list``, ``get``, ``show`` of a remote model) are not
+ported.
 """
 import dataclasses
 import logging
@@ -432,8 +436,17 @@ def binarize(ctx, threshold, zoom, escale, border, perc, range, low, high, accel
               help='Left and right padding around lines (bbox segmenter only).')
 @click.option('--input-pad', 'input_padding', type=int, default=0,
               help='Padding to add around the input image.')
+@click.option('--device-vectorize/--host-vectorize', default=False,
+              help='Carve all seams of a page in one launch on the device instead '
+                   'of the host DP (identical results).')
+@click.option('--transfer', default='float', type=click.Choice(['float', 'bytes']),
+              help='Device-link payload format: "bytes" uploads the page as uint8 '
+                   'and picks the heatmap download from a one-off measure of the '
+                   'upload rate (bit-packed masks on a slow link, quantized heatmaps '
+                   'otherwise).')
 def segment(ctx, model, boxes, text_direction, legacy_scale, legacy_maxcolseps,
-            legacy_black_colseps, legacy_no_hlines, bbox_line_padding, input_padding):
+            legacy_black_colseps, legacy_no_hlines, bbox_line_padding, input_padding,
+            device_vectorize, transfer):
     """
     Segments page images into text lines.
     """
@@ -446,6 +459,10 @@ def segment(ctx, model, boxes, text_direction, legacy_scale, legacy_maxcolseps,
                                          legacy_no_hlines=legacy_no_hlines,
                                          bbox_line_padding=bbox_line_padding,
                                          input_padding=input_padding,
+                                         device_vectorize=device_vectorize,
+                                         input_transfer='uint8' if transfer == 'bytes' else 'float',
+                                         heatmap_precision='auto' if transfer == 'bytes'
+                                         else 'float32',
                                          device=ctx.meta['device'],
                                          precision=ctx.meta['precision'],
                                          raise_on_error=ctx.meta['raise_failed'])

@@ -14,12 +14,13 @@ polygon boolean operations run as rasterized mask ops (everything is in
 pixel space), line offsets as direct normal-vector shifts, and rotations via
 cv2 affine warps.
 
-A copy of the JAX package's ``lib/polygonization.py`` with the host seam
-carver only (native C++ or numpy); the batched device seam DP of that
-package (``ops/seam.py``, its ``device_vectorize`` option) is not ported
-yet.
+A copy of the JAX package's ``lib/polygonization.py``. The seam DPs run
+on the host (native C++ or numpy) or, with ``seam_carver='device'`` (the
+segmenter's ``device_vectorize``), all of a page's in one launch of the
+seam kernel (``ops/seam.py``, ``csrc/seam.cu``).
 """
 import logging
+from functools import partial
 from typing import Optional, Sequence
 
 import cv2
@@ -421,22 +422,53 @@ def _prepare_line(line, neighbors: list, bounds: np.ndarray,
                           end_points, topline, offset, im_feats)
 
 
+def _carve_rows_device(patches: list, device='cuda') -> list:
+    """The seam DP of a list of (h, w) float32 patches on `device`: pads
+    them to a common shape (an +inf row above and below each, +inf fill,
+    as the JAX package pads them) and runs
+    :func:`kraken_tpu_torch.ops.seam.carve_seams_device` in one launch.
+    Returns each patch's seam rows with the pad offset removed."""
+    from kraken_tpu_torch.ops.seam import carve_seams_device
+    if not patches:
+        return []
+    padded = [np.pad(p, ((1, 1), (0, 0)), mode='constant',
+                     constant_values=np.inf) for p in patches]
+    h = max(p.shape[0] for p in padded)
+    w = max(p.shape[1] for p in padded)
+    batch = np.full((len(padded), h, w), np.inf, np.float32)
+    widths = np.array([p.shape[1] for p in padded], np.int32)
+    for i, p in enumerate(padded):
+        batch[i, :p.shape[0], :p.shape[1]] = p
+    rows = carve_seams_device(batch, widths, device)
+    return [rows[k, :widths[k]] - 1 for k in range(len(padded))]
+
+
 def polygonize_page(jobs: Sequence, im_feats: np.ndarray,
                     topline: Optional[bool] = False,
-                    raise_on_error: bool = False) -> list:
+                    raise_on_error: bool = False,
+                    seam_carver: str = 'host',
+                    device='cuda') -> list:
     """
     Page-level polygonization: every entry of `jobs` is a
     ``(baseline, suppl_obj)`` pair with its own boundary set (the other
     lines plus any containing regions, as vec_lines builds them).
-    Preparation, the seam DPs and completion run in the native C++
-    polygonizer when available (kraken_tpu_torch/native/polygonize.cpp —
-    one call for the whole page), else per line in numpy/OpenCV.
+    Preparation and completion run in the native C++ polygonizer when
+    available (kraken_tpu_torch/native/polygonize.cpp — one call for the
+    whole page), else per line in numpy/OpenCV; the seam DPs run either
+    on the host too (``seam_carver='host'``, the default: the native DP or
+    numpy) or all of the page's in one launch of the seam kernel on
+    `device` (``seam_carver='device'``, ``ops/seam.py``; ``device='cpu'``
+    runs its plain version). Both carvers give the same polygons. The
+    JAX package defaults to its device carver; the port keeps the host
+    one, which needs no device.
     """
+    carve_rows = partial(_carve_rows_device, device=device) if seam_carver == 'device' else None
     if not raise_on_error:
         from kraken_tpu_torch import native
         if native.available():
             out = native.polygonize_page_native(
-                [j[0] for j in jobs], [j[1] for j in jobs], im_feats, topline)
+                [j[0] for j in jobs], [j[1] for j in jobs], im_feats, topline,
+                carve_rows=carve_rows)
             if out is not None:
                 for idx, pol in enumerate(out):
                     if pol is None:
@@ -445,11 +477,16 @@ def polygonize_page(jobs: Sequence, im_feats: np.ndarray,
 
     bounds = np.array(im_feats.shape[::-1], dtype=float) - 1
 
+    def prepare_one(idx, line):
+        neighbors = [np.asarray(o, float) for o in jobs[idx][1]]
+        return _prepare_line(line, neighbors, bounds, topline, im_feats)
+
+    if seam_carver == 'device':
+        return _polygonize_batched([j[0] for j in jobs], prepare_one, raise_on_error, device)
+
     def _one(idx, line):
         try:
-            neighbors = [np.asarray(o, float) for o in jobs[idx][1]]
-            patch_u, patch_b, complete = _prepare_line(line, neighbors, bounds,
-                                                       topline, im_feats)
+            patch_u, patch_b, complete = prepare_one(idx, line)
             return complete(_carve_seam(patch_u), _carve_seam(patch_b)).tolist()
         except Exception as e:
             if raise_on_error:
@@ -459,13 +496,55 @@ def polygonize_page(jobs: Sequence, im_feats: np.ndarray,
     return [_one(i, j[0]) for i, j in enumerate(jobs)]
 
 
+def _polygonize_batched(baselines, prepare_one, raise_on_error: bool, device='cuda') -> list:
+    """
+    Batched polygonization: prepares every line's two seam patches on the
+    host, carves all seams in one launch of the seam kernel on `device`
+    (``ops/seam.py``), then completes each polygon. Row and width +inf
+    padding keeps the results those of the per-line host DP.
+    """
+    preps = []
+    for idx, line in enumerate(baselines):
+        try:
+            preps.append(prepare_one(idx, line))
+        except Exception as e:
+            if raise_on_error:
+                raise
+            logger.warning(f'Polygonization failed for line {idx}: {e}')
+            preps.append(None)
+
+    patches = [p for pr in preps if pr is not None for p in pr[:2]]
+    if not patches:
+        return [None] * len(preps)
+    rows = _carve_rows_device(patches, device)
+
+    polygons = []
+    k = 0
+    for idx, pr in enumerate(preps):
+        if pr is None:
+            polygons.append(None)
+            continue
+        rows_u, rows_b = rows[k], rows[k + 1]
+        k += 2
+        try:
+            polygons.append(pr[2](rows_u, rows_b).tolist())
+        except Exception as e:
+            if raise_on_error:
+                raise
+            logger.warning(f'Polygonization failed for line {idx}: {e}')
+            polygons.append(None)
+    return polygons
+
+
 def calculate_polygonal_environment(im=None,
                                     baselines: Sequence = None,
                                     suppl_obj: Sequence = None,
                                     im_feats: np.ndarray = None,
                                     scale: tuple[int, int] = None,
                                     topline: Optional[bool] = False,
-                                    raise_on_error: bool = False) -> list:
+                                    raise_on_error: bool = False,
+                                    seam_carver: str = 'host',
+                                    device='cuda') -> list:
     """
     Computes a bounding polygon for every baseline.
 
@@ -478,6 +557,10 @@ def calculate_polygonal_environment(im=None,
         topline: baseline position: False = bottom, True = top,
                  None = centerline (no offset).
         raise_on_error: raise instead of emitting None for failed lines.
+        seam_carver: 'host' runs the per-line seam DP on the host (native
+                 C++ / numpy); 'device' carves every patch of the call in
+                 one launch of the seam kernel on `device` (``ops/seam.py``;
+                 ``device='cpu'`` its plain version): the same polygons.
 
     Returns:
         One polygon (list of (x, y)) or None per baseline.
@@ -511,7 +594,9 @@ def calculate_polygonal_environment(im=None,
         # C++ call (the cv2/numpy code below remains the documented
         # fallback; boundary rasterization may differ by single pixels)
         polygons = native.polygonize_page_native(
-            baselines, [suppl_obj] * len(baselines), im_feats, topline)
+            baselines, [suppl_obj] * len(baselines), im_feats, topline,
+            carve_rows=partial(_carve_rows_device, device=device)
+            if seam_carver == 'device' else None)
         if polygons is not None:
             for idx, pol in enumerate(polygons):
                 if pol is None:
@@ -537,16 +622,19 @@ def calculate_polygonal_environment(im=None,
             logger.warning(f'Polygonization failed for line {idx}: {e}')
             return None
 
-    # lines are independent; scipy/cv2 release the GIL so a thread pool
-    # scales the per-line rotation + seam DP across cores
-    import os
-    from concurrent.futures import ThreadPoolExecutor
-    n_workers = min(len(baselines), max(1, (os.cpu_count() or 2) - 1))
-    if n_workers > 1 and len(baselines) > 1 and not raise_on_error:
-        with ThreadPoolExecutor(max_workers=n_workers) as pool:
-            polygons = list(pool.map(_polygonize_one, range(len(baselines)), baselines))
+    if seam_carver == 'device':
+        polygons = _polygonize_batched(baselines, _prepare_one, raise_on_error, device)
     else:
-        polygons = [_polygonize_one(i, line) for i, line in enumerate(baselines)]
+        # lines are independent; scipy/cv2 release the GIL so a thread pool
+        # scales the per-line rotation + seam DP across cores
+        import os
+        from concurrent.futures import ThreadPoolExecutor
+        n_workers = min(len(baselines), max(1, (os.cpu_count() or 2) - 1))
+        if n_workers > 1 and len(baselines) > 1 and not raise_on_error:
+            with ThreadPoolExecutor(max_workers=n_workers) as pool:
+                polygons = list(pool.map(_polygonize_one, range(len(baselines)), baselines))
+        else:
+            polygons = [_polygonize_one(i, line) for i, line in enumerate(baselines)]
 
     if scale_f is not None:
         polygons = [(np.array(p) / scale_f).astype('uint').tolist() if p is not None else None

@@ -188,6 +188,21 @@ def test_segment_json_equals_jax(jax_outputs, tmp_path):
     assert normalise(seg) == normalise(jax_outputs['segment'])
 
 
+@pytest.mark.parametrize('options', [['--transfer', 'bytes'], ['--device-vectorize'],
+                                     ['--transfer', 'bytes', '--device-vectorize']],
+                         ids=lambda v: ' '.join(v))
+def test_segment_device_options_equal_jax(jax_outputs, options, tmp_path):
+    """``segment --transfer bytes`` (the page up as bytes, the heatmap
+    download picked by the link probe: 'uint8' on this machine in both) and
+    ``--device-vectorize`` (the seam DPs in one batch) write the JAX CLI's
+    JSON, which is the float command's."""
+    out = tmp_path / 'seg.json'
+    seg = torch_run(page_args(out, 'segment', '-bl', *options), out)
+    want = jax_run(page_args(tmp_path / 'jax.json', 'segment', '-bl', *options),
+                   tmp_path / 'jax.json')
+    assert normalise(seg) == normalise(want) == normalise(jax_outputs['segment'])
+
+
 @pytest.mark.parametrize('fmt', list(FORMATS))
 def test_xml_input_serializations_equal_jax(fmt, jax_outputs, tmp_path):
     from lxml import etree
@@ -255,9 +270,7 @@ def test_without_a_card_the_default_device_fails(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize('args, says', [
-    (['segment', '-bl', '--transfer', 'bytes'], 'No such option'),
     (['segment', '-bl', '--devices', '2'], 'No such option'),
-    (['segment', '-bl', '--device-vectorize'], 'No such option'),
     (['ocr', '-m', 'x', '--devices', '2'], 'No such option'),
     (['list'], 'No such command'),
     (['get', 'x'], 'No such command'),

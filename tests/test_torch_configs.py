@@ -38,7 +38,9 @@ SHARED = {'RecognitionInferenceConfig': ('precision', 'batch_size', 'raise_on_er
                                           'text_direction', 'legacy_scale', 'legacy_maxcolseps',
                                           'legacy_black_colseps', 'legacy_no_hlines',
                                           'bbox_line_padding', 'input_padding',
-                                          'ridge_threshold')}
+                                          'ridge_threshold', 'heatmap_precision',
+                                          'input_transfer', 'device_vectorize',
+                                          'width_bucketing')}
 
 
 def _warnings(caplog) -> list[str]:

@@ -1504,3 +1504,110 @@ def test_input_routes_on_the_card_equal_the_cpu(cuda_device, route):
     for a, b in zip(records['cuda'], records['cpu']):
         assert a.prediction == b.prediction and a.cuts == b.cuts
         np.testing.assert_allclose(a.confidences, b.confidences, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_segmask_kernels_match_plain(cuda_device):
+    """maxpool20, pack_masks and quantize_u8 against their plain versions,
+    bit for bit, at chip_smoke.py's phase-26 cases (maps under 10 px,
+    widths 1 to 9 and 354, ties at 0.5 and ±0.2, the exact halves), the
+    full-size shapes cut to 180 rows; one launch a call."""
+    from kraken_tpu_torch.ops.segmask import maxpool20, pack_masks, quantize_u8
+    full = SMOKE.SEGMASK_FULL
+    SMOKE.SEGMASK_FULL = (1, 10, 180, 1245)
+    try:
+        maps = {'probs': SMOKE.random_maps((1, 10, 64, 50), 0, cuda_device),
+                'bins': (SMOKE.random_maps((1, 4, 64, 50), 1, cuda_device) > 0.5).to(torch.uint8),
+                'regions': (6, 7, 8, 9), 'separators': (0, 1)}
+        before = (maxpool20.launches, pack_masks.launches, quantize_u8.launches)
+        rows = SMOKE.check_segmask(cuda_device, maps)
+        torch.cuda.synchronize()
+    finally:
+        SMOKE.SEGMASK_FULL = full
+    assert all(r['bitwise_equal'] for r in rows), [r for r in rows if not r['bitwise_equal']]
+    count = {k: sum(r['kernel'] == k for r in rows)
+             for k in ('maxpool20', 'pack_masks', 'quantize_u8')}
+    assert (maxpool20.launches - before[0], pack_masks.launches - before[1],
+            quantize_u8.launches - before[2]) == tuple(count.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', range(len(SMOKE.seam_cases())))
+def test_seam_kernel_matches_plain_and_host_dp(cuda_device, case):
+    """The seam kernel's backtrack and start column against its plain
+    version, and the device carver's rows against the plain version on the
+    CPU and the native host DP, at chip_smoke.py's phase-26 cases (ties,
+    overflow, masked columns, width-1 patches, 1100 and 7000 rows)."""
+    from kraken_tpu_torch.ops.seam import seam_forward
+    tag, patches, host_dp = SMOKE.seam_cases()[case]
+    before = seam_forward.launches
+    row = SMOKE.check_seam(tag, patches, cuda_device, host_dp)
+    assert row['backtrack_equal'] and row['cost_column_equal'] and row['rows_equal'], row
+    # the check launches the kernel twice (seam_forward, then the carver)
+    assert seam_forward.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('bad', ['dtype', 'device', 'strided', 'shape'])
+def test_segmask_and_seam_wrappers_raise(cuda_device, bad):
+    """Each wrapper refuses a wrong type, a tensor on another device, a
+    strided tensor and shapes that do not fit, before any launch."""
+    from kraken_tpu_torch.ops.seam import seam_forward
+    from kraken_tpu_torch.ops.segmask import maxpool20, pack_masks, quantize_u8
+    dtype = torch.float64 if bad == 'dtype' else torch.float32
+    other = torch.device('cpu') if bad == 'device' else cuda_device
+
+    def make(*shape, dt=dtype, device=cuda_device):
+        if bad == 'strided':
+            return torch.rand(*shape[:-1], 2 * shape[-1], device=device).to(dt)[..., ::2]
+        return torch.rand(*shape, device=device).to(dt)
+
+    if bad != 'device':
+        with pytest.raises((ValueError, TypeError)):
+            maxpool20(make(16, 40) if bad == 'shape' else make(2, 16, 40))
+        with pytest.raises((ValueError, TypeError)):
+            quantize_u8(make(1, 4, 16, 20) if bad != 'shape' else make(1, 4, 16, 20).to(torch.int32))
+    probs = make(1, 4, 16, 20)
+    filt = make(1, 2, 16, 20, dt=torch.float32, device=other)
+    ridge = torch.zeros(1, 1, 16, 21 if bad == 'shape' else 20, dtype=torch.uint8,
+                        device=cuda_device)
+    with pytest.raises((ValueError, TypeError)):
+        pack_masks(probs, (2, 3), filt, ridge)
+    patches = make(3, 8, 12)
+    widths = torch.full((2 if bad == 'shape' else 3,), 5, dtype=torch.int32, device=other)
+    with pytest.raises((ValueError, TypeError)):
+        seam_forward(patches, widths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('route', [{'heatmap_precision': 'uint8'},
+                                   {'heatmap_precision': 'packbits'},
+                                   {'input_transfer': 'uint8', 'heatmap_precision': 'auto'},
+                                   {'device_vectorize': True}],
+                         ids=['uint8', 'packbits', 'bytes_auto', 'device_vectorize'])
+def test_segmentation_routes_on_the_card_equal_the_cpu(cuda_device, route):
+    """The fixture page through each segmentation route on the card and on
+    the CPU: the same Segmentation as the float route; the route's kernels
+    launched once a page on the card."""
+    from PIL import Image
+    from kraken_tpu_torch.configs import SegmentationInferenceConfig
+    from kraken_tpu_torch.ops.seam import seam_forward
+    from kraken_tpu_torch.ops.segmask import maxpool20, pack_masks, quantize_u8
+    from kraken_tpu_torch.tasks import SegmentationTaskModel
+    task = SegmentationTaskModel.load_model()
+    im = Image.open(RESOURCES / '170025120000003,0074.jpg')
+    float_seg = SMOKE.seg_record(task.predict(im, SegmentationInferenceConfig()))
+    kernels = (maxpool20, pack_masks, quantize_u8, seam_forward)
+    records, launched, sent = {}, {}, {}
+    for device in ('cuda', 'cpu'):
+        before = [k.launches for k in kernels]
+        records[device] = SMOKE.seg_record(task.predict(
+            im, SegmentationInferenceConfig(device=device, **route)))
+        torch.cuda.synchronize()
+        launched[device] = tuple(k.launches - b for k, b in zip(kernels, before))
+        sent[device] = task.seg_models[0]._seg_transfer
+    assert records['cuda'] == records['cpu'] == float_seg
+    want = {'uint8': (0, 0, 1, 0), 'packbits': (1, 1, 0, 0)}.get(sent['cuda'], (0, 0, 0, 0))
+    if route.get('device_vectorize'):
+        want = (0, 0, 0, 1)
+    assert launched == {'cuda': want, 'cpu': (0, 0, 0, 0)}

@@ -62,6 +62,10 @@ from kraken_tpu_torch.tasks import SegmentationTaskModel
 page = Image.open(res + '/170025120000003,0074.jpg').resize((354, 512))
 assert len(SegmentationTaskModel.load_model().predict(
     page, SegmentationInferenceConfig(device='cpu')).lines) > 10
+for route in ({'input_transfer': 'uint8', 'heatmap_precision': 'packbits'},
+              {'heatmap_precision': 'auto', 'device_vectorize': True}):
+    assert len(SegmentationTaskModel.load_model().predict(
+        page, SegmentationInferenceConfig(device='cpu', **route)).lines) > 10
 assert blla.segment(page, device='cpu').type == 'baselines'
 from kraken_tpu_torch.tasks import ForcedAlignmentTaskModel
 aligned = ForcedAlignmentTaskModel.load_model(res + '/overfit.mlmodel').predict(
@@ -161,7 +165,9 @@ print('FORBIDDEN', bad)
 def test_port_runs_without_jax_or_kraken_tpu(resources):
     """A fresh interpreter runs the port's recognition forward and engine
     (an ocropy and a transformer network among them; device line extraction
-    and the packed byte upload), its segmentation (the task model and the legacy ``blla.segment``), its
+    and the packed byte upload), its segmentation (the task model, also with
+    the byte upload, the packed and quantized downloads and the device seam
+    carver, and the legacy ``blla.segment``), its
     forced alignment, its neural reading order, its CLI (``segment -bl
     ocr`` to ALTO), its page pipeline, the host and the device nlbin, the
     legacy box segmenter, the PDF extractor, ``ketos test`` on path input,
@@ -251,7 +257,7 @@ def test_source_scan_finds_no_jax_imports():
             'pretrain/model.py', 'ketos/pretrain.py', 'registry.py', 'parallel/__init__.py',
             'parallel/mesh.py', 'parallel/launch.py', 'parallel/dryrun.py',
             'lib/functional_im_transforms.py', 'lib/exceptions.py', 'inference/extraction.py',
-            'ops/extract.py', 'lib/telemetry.py'} <= scanned
+            'ops/extract.py', 'lib/telemetry.py', 'ops/segmask.py', 'ops/seam.py'} <= scanned
     found = {str(p.relative_to(REPO)): _forbidden_imports(p.read_text()) for p in files}
     assert {k: v for k, v in found.items() if v} == {}
 
