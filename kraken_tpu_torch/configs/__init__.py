@@ -8,29 +8,37 @@ the rest up. Inference configs carry injectable function members (the CTC
 decoder, the reading-order functions) like the reference.
 
 ``device`` names a torch device and defaults to ``'cuda'``: the port runs
-on the card unless the caller asks for ``'cpu'``. Recognition keeps the
-JAX package's input routes: ``input_transfer`` ('float', or the byte
-uploads 'uint8' and 'packed', the latter rebuilt on the card by the packed
-gather of ``csrc/extract.cu``) and ``line_extraction`` ('host', or
-'device': the gather-warp of ``csrc/extract.cu`` cuts the lines out of the
-page on the card). Some TPU knobs have no counterpart: conv/pool fusion,
-the LSTM backend switch (on CUDA the recurrence always runs in the port's
-kernel) and multi-device meshes. Segmentation keeps the JAX package's
-link options: ``heatmap_precision`` ('float32', the default; 'uint8', the
-heatmaps quantized on the card; 'packbits', the decision masks bit-packed
-on the card; 'auto', which probes the upload rate once), ``input_transfer``
-('float', or 'uint8': the page uploaded as bytes), ``device_vectorize``
-(the page's seam DPs in one launch of the seam kernel) and
-``width_bucketing``. It has no ``devices`` (inference over several cards is
-ROADMAP queue 1 item 16) and no ``fused_ridge`` (the ridge filter of the
-baseline channels always runs in the forward; ``fused_ridge=False`` is
-queue 1 item 15c): those keys warn.
-Nor has it ``accelerator`` (``device`` names the device), ``compile``
-(XLA compile options; torch runs eagerly) or ``device_pipeline_depth``
-(the recognition engine keeps one batch in flight, the JAX default), nor
-``num_threads`` (the CLI's ``--threads`` sizes OpenCV's pool; no config
-reads it) or ``linetype`` (the XML readers take the line type as an
-argument); those keys warn as unknown.
+on the card unless the caller asks for ``'cpu'``. ``devices`` (both
+inference configs, default 1) shards every batch over that many devices in
+one process, as the JAX package's 1-D mesh does: one replica of the network
+a device, the line or page batch padded to a multiple of N and split into
+N contiguous shards, each forwarded on its own device, the results gathered
+in order (``parallel/mesh.py:make_infer_fn``). N maps to ``cuda:0`` to
+``cuda:N-1`` (fewer visible cards raise), or to N shards on the CPU with
+``device='cpu'``. Recognition keeps the JAX package's input routes:
+``input_transfer`` ('float', or the byte uploads 'uint8' and 'packed', the
+latter rebuilt on the card by the packed gather of ``csrc/extract.cu``) and
+``line_extraction`` ('host', or 'device': the gather-warp of
+``csrc/extract.cu`` cuts the lines out of the page on the card). Some TPU
+knobs have no counterpart: conv/pool fusion and the LSTM backend switch (on
+CUDA the recurrence always runs in the port's kernel). Segmentation keeps
+the JAX package's link options: ``heatmap_precision`` ('float32', the
+default; 'uint8', the heatmaps quantized on the card; 'packbits', the
+decision masks bit-packed on the card; 'auto', which probes the upload rate
+once), ``input_transfer`` ('float', or 'uint8': the page uploaded as
+bytes), ``device_vectorize`` (the page's seam DPs in one launch of the seam
+kernel) and ``width_bucketing``, and its ``fused_ridge``: True (the
+default) runs the ridge filter and threshold of the baseline channels in
+the forward (``csrc/ridge.cu``) and sends back the masks; False sends back
+the heatmaps, and vectorization filters them on the host (the port's copy
+of ``sato_ridge``) or, with ``device_vectorize``, in the ridge kernel's
+response mode (``ops/ridge.py:sato_ridge_device``).
+Neither config has ``accelerator`` (``device`` names the device),
+``compile`` (XLA compile options; torch runs eagerly) or
+``device_pipeline_depth`` (the recognition engine keeps one batch in
+flight, the JAX default), nor ``num_threads`` (the CLI's ``--threads``
+sizes OpenCV's pool; no config reads it) or ``linetype`` (the XML readers
+take the line type as an argument); those keys warn as unknown.
 
 The training and data configs (the JAX package's ``TrainingDataConfig``,
 ``TrainingConfig`` and their recognition, segmentation and reading-order
@@ -38,8 +46,8 @@ subclasses, and the pretraining config) keep the JAX keys and defaults and
 serve the training loops and evaluation of :mod:`kraken_tpu_torch.train`,
 :mod:`kraken_tpu_torch.pretrain` and ``ketos``. Their ``devices`` is the
 number of processes of data-parallel training (``ketos --devices N``, one
-a card, :mod:`kraken_tpu_torch.parallel`); the inference configs have no
-``devices`` (inference over several cards is not ported, by decision).
+a card, :mod:`kraken_tpu_torch.parallel`); the inference configs'
+``devices`` shards within one process.
 """
 import logging
 from collections import defaultdict
@@ -102,6 +110,8 @@ class RecognitionInferenceConfig(Config):
                          batch on the device (baseline segmentations of
                          fixed-height one-channel models; others stay on
                          the host)
+        devices: shard every line batch over this many devices (one
+                 process; ``cuda:0`` to ``cuda:N-1``, or N CPU shards)
     """
 
     def __init__(self, **kwargs):
@@ -117,6 +127,7 @@ class RecognitionInferenceConfig(Config):
         self.text_direction = kwargs.pop('text_direction', 'horizontal-tb')
         self.input_transfer = kwargs.pop('input_transfer', 'float')
         self.line_extraction = kwargs.pop('line_extraction', 'host')
+        self.devices = kwargs.pop('devices', 1)
         super().__init__(**kwargs)
 
 
@@ -129,7 +140,7 @@ class SegmentationInferenceConfig(Config):
         input_padding: padding around the page before the forward (int,
                        (l/r, t/b) or (l, r, t, b))
         bbox_ro_fn / baseline_ro_fn: injectable reading-order functions
-        ridge_threshold: threshold of the ridge response
+        ridge_threshold: threshold of the ridge response (fused route)
         width_bucketing: pad a single page's width up to a geometric bucket
                      before the forward too (a page batch always is)
         heatmap_precision: what the forward sends back: 'float32' the
@@ -145,7 +156,18 @@ class SegmentationInferenceConfig(Config):
                      bytes, divided by 255 on the device
         device_vectorize: carve every seam of a page's polygonization in
                      one launch of the seam kernel on the device (the same
-                     polygons as the host DP)
+                     polygons as the host DP) and, with ``fused_ridge=False``,
+                     filter the baseline maps in the ridge kernel's
+                     response mode
+        fused_ridge: run the ridge filter and threshold of the baseline
+                     channels in the forward and send back the masks (the
+                     default); False sends back the heatmaps and
+                     vectorization filters them, thresholding at
+                     ``vectorize_lines``' 0.17 whatever ``ridge_threshold``
+                     says, as the JAX package does; 'packbits' then takes
+                     'uint8'
+        devices: shard every page batch over this many devices (one
+                 process; ``cuda:0`` to ``cuda:N-1``, or N CPU shards)
         legacy_*, bbox_line_padding: parameters of the legacy bbox page
                      segmenter (``pageseg.segment``)
     """
@@ -166,6 +188,8 @@ class SegmentationInferenceConfig(Config):
         self.heatmap_precision = kwargs.pop('heatmap_precision', 'float32')
         self.device_vectorize = kwargs.pop('device_vectorize', False)
         self.input_transfer = kwargs.pop('input_transfer', 'float')
+        self.fused_ridge = kwargs.pop('fused_ridge', True)
+        self.devices = kwargs.pop('devices', 1)
         super().__init__(**kwargs)
 
 

@@ -13,8 +13,13 @@
 //   tmp = sqrt((hyy - hxx)^2 + 4 hxy^2),  low = (hyy + hxx - tmp) / 2,
 // and the response is the max over sigmas of max(0, -low). The mask is
 // response > threshold (strict), as uint8; the fp32 response is written
-// too when the caller passes a buffer for it. One launch covers every
-// chosen channel of every page of an (N, K, H, W) fp32 stack.
+// too when the caller passes a buffer for it. With no mask buffer the
+// kernel runs in its response mode: it writes only the fp32 response and
+// skips the threshold and the mask store (the counterpart of
+// kraken_tpu/ops/ridge.py:123 sato_ridge_device, the un-thresholded
+// response of one map, which the fused_ridge=False route reads back).
+// One launch covers every chosen channel of every page of an
+// (N, K, H, W) fp32 stack.
 //
 // What bounds it on the H100: operations. The separable filters have 205
 // taps per component per pass, 3 components, 2 passes: 1,230 multiply-adds
@@ -289,18 +294,21 @@ __global__ void __launch_bounds__(kThreads, 2) sato_kernel(
   const int y = ty0 + pixel_row(), x0 = tx0 + pixel_col();
   if (y >= H || x0 >= W) return;
   const size_t out = ((size_t)blockIdx.y * H + y) * W + x0;
+  // mask and response are the same for every block: the branches do not diverge
   if (x0 + kPixels <= W) {
-    uint64_t bits = 0;
+    if (mask) {
+      uint64_t bits = 0;
 #pragma unroll
-    for (int k = 0; k < kPixels; ++k) bits |= (uint64_t)(resp[k] > threshold ? 1 : 0) << (8 * k);
-    store_mask8(mask + out, bits);
+      for (int k = 0; k < kPixels; ++k) bits |= (uint64_t)(resp[k] > threshold ? 1 : 0) << (8 * k);
+      store_mask8(mask + out, bits);
+    }
     if (response) store_float8(response + out, resp);
     return;
   }
 #pragma unroll
   for (int k = 0; k < kPixels; ++k) {
     if (x0 + k < W) {
-      mask[out + k] = resp[k] > threshold ? 1 : 0;
+      if (mask) mask[out + k] = resp[k] > threshold ? 1 : 0;
       if (response) response[out + k] = resp[k];
     }
   }
@@ -336,12 +344,12 @@ extern "C" int ridge_geometry(int N, int nc, int H, int W, int* tw, int* th, int
 }
 
 // probs: (N, K, H, W) fp32 contiguous. channels: nc (<= 32) channel indices
-// in host memory. mask: (N, nc, H, W) uint8. response: (N, nc, H, W) fp32
-// or null.
+// in host memory. mask: (N, nc, H, W) uint8 or null (the response mode).
+// response: (N, nc, H, W) fp32 or null; one of the two must be given.
 extern "C" int sato_ridge_forward(const void* probs, int N, int K, int H, int W,
                                   const int* channels, int nc, float threshold, void* mask,
                                   void* response, int device, void* stream) {
-  if (K <= 0 || !valid(N, H, W, nc)) return (int)cudaErrorInvalidValue;
+  if (K <= 0 || !valid(N, H, W, nc) || (!mask && !response)) return (int)cudaErrorInvalidValue;
   Channels ch;
   for (int i = 0; i < nc; ++i) {
     if (channels[i] < 0 || channels[i] >= K) return (int)cudaErrorInvalidValue;

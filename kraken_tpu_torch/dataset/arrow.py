@@ -62,12 +62,15 @@ def _extract_line(record: Segmentation, skip_empty_lines: bool = True,
     except (OSError, FileNotFoundError, UnidentifiedImageError) as err:
         logger.warning(f'Error loading image {record.imagename}: {err}')
         return lines, None
+    # the straight-line extractor's page array, read once for the record's lines
+    page_array = np.asarray(im) if im.mode == 'L' else None
     for idx, rec in enumerate(record.lines):
         seg = Segmentation(text_direction='horizontal-lr', imagename=record.imagename,
                            type=record.type, lines=[rec], regions=None,
                            script_detection=False, line_orders=[])
         try:
-            line_im, line = next(extract_polygons(im, seg, legacy=legacy_polygons))
+            line_im, line = next(extract_polygons(im, seg, legacy=legacy_polygons,
+                                                  page_array=page_array))
         except (KrakenInputException, ValueError):
             logger.warning(f'Invalid line {idx} in {record.imagename}')
             continue

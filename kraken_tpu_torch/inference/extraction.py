@@ -45,7 +45,7 @@ from kraken_tpu_torch.ops.extract import M_GRID, M_MASK, extract_batch, extract_
 
 logger = logging.getLogger(__name__)
 
-__all__ = ['DeviceLine', 'baseline_line_desc', 'bbox_line_desc', 'host_line_desc',
+__all__ = ['DeviceLine', 'baseline_line_desc', 'bbox_line_desc', 'host_line_desc', 'masked_blank',
            'build_extract_payload', 'extract_batch', 'extract_batch_reference',
            'supports_device_extraction', 'M_GRID', 'M_MASK', 'ATLAS_BUCKET_BASE',
            'ATLAS_BUCKET_GROWTH', 'PAGE_BUCKET_BASE', 'PAGE_BUCKET_GROWTH']
@@ -167,6 +167,32 @@ def _content_bbox(poly: np.ndarray, canvas_h: int, canvas_w: int):
     bx1 = int(np.clip(np.ceil(poly[:, 0].max()), bx0, canvas_w - 1))
     by1 = int(np.clip(np.ceil(poly[:, 1].max()), by0, canvas_h - 1))
     return bx0, by0, bx1, by1
+
+
+def masked_blank(strip: np.ndarray, boundary, padded: bool = True) -> bool:
+    """
+    Whether the host route finds a baseline line empty, judged on its strip
+    (the axis-aligned box of its polygon): the host masks the line with its
+    polygon (``cv2.fillPoly``, the pixels outside set to 0), crops it to
+    the rows and columns the mask leaves non-zero and finds it empty when
+    the line tensor is uniform, which with white side padding (`padded`)
+    needs a white crop. So a blank polygon whose box takes in a
+    neighbour's ink is empty here as on the host, where the strip alone is
+    not uniform. A crop the mask leaves all zero is not called blank: the
+    host pads it white and recognises it.
+    """
+    import cv2
+    pl = np.asarray(boundary)
+    mask = np.zeros(strip.shape, np.uint8)
+    cv2.fillPoly(mask, [(pl - (int(pl[:, 0].min()), int(pl[:, 1].min()))).astype(np.int32)], 1)
+    masked = strip * mask
+    rows = np.flatnonzero(masked.any(axis=1))
+    if not len(rows):
+        return False
+    cols = np.flatnonzero(masked.any(axis=0))
+    crop = masked[rows[0]:rows[-1] + 1, cols[0]:cols[-1] + 1]
+    low, high = crop.min(), crop.max()
+    return bool(low == high and (high == 255 or not padded))
 
 
 def baseline_line_desc(page_arr: np.ndarray, line, height: int, pad: int,

@@ -26,6 +26,17 @@ the line count up to powers of two, so both packages see identically shaped
 batches and cuDNN sees few shapes. Only the (N, W) labels/confidences come
 back to the host unless the decoder or ``return_logits`` needs the full
 posteriors.
+
+With ``devices=N`` every batch is padded to a multiple of N and split into
+N contiguous shards, each built by the batch's input route and forwarded on
+its own device by its replica of the network (the JAX package's 1-D mesh,
+in one process; :mod:`kraken_tpu_torch.parallel.mesh`); the decode gathers
+the shards in order.
+
+The page's pixels are read anew in every ``predict`` call: nothing is
+cached on the image, so an image changed in place between two calls is
+recognised from its new pixels (the JAX package keys its caches on the
+image size alone and recognises the old ones).
 """
 import contextlib
 import dataclasses
@@ -128,9 +139,11 @@ def prepare_recognition(model: 'VGSLModel', config) -> None:
     Configures a recognition model for inference: resolves the device
     (raising when a CUDA device is asked for and there is none), casts the
     parameters to the precision's type and moves them there, and empties
-    the cache of page buffers resident on the device.
+    the cache of page buffers resident on the device. With ``devices > 1``
+    it keeps a replica of the network on each of the shards' devices.
     """
     from collections import OrderedDict
+    from kraken_tpu_torch.parallel.mesh import inference_devices, replicas
     device = resolve_device(config.device)
     dtype = _PRECISION_DTYPES.get(config.precision, torch.float32)
     model.net.to(device=device, dtype=dtype)
@@ -139,25 +152,28 @@ def prepare_recognition(model: 'VGSLModel', config) -> None:
     model._device = device
     model._m_dtype = dtype
     model._page_buf_cache = OrderedDict()
+    shards = inference_devices(config.devices, device)
+    model._shard_devices = shards if len(shards) > 1 else None
+    model._replicas = replicas(model.net, shards) if len(shards) > 1 else None
 
 
-def _forward(model: 'VGSLModel', x: torch.Tensor, seq_lens: torch.Tensor, temperature: float,
-             probs: bool = True):
+def _forward(net: torch.nn.Module, dtype: torch.dtype, x: torch.Tensor, seq_lens: torch.Tensor,
+             temperature: float, probs: bool = True):
     """Network forward plus the softmax/argmax/max tail (``csrc/tail.cu`` on
-    the card), on the model's device; the (N, C, W) posteriors are None
+    the card), on the device of `x`; the (N, C, W) posteriors are None
     unless `probs` asks for them."""
     from kraken_tpu_torch.ops.tail import recognition_tail
-    with torch.inference_mode(), _precise_fp32(model._m_dtype):
-        logits, olens = model.net(x, seq_lens)
+    with torch.inference_mode(), _precise_fp32(dtype):
+        logits, olens = net(x, seq_lens)
         p, labels, confs = recognition_tail(logits, temperature, probs=probs)
     return p, labels, confs, olens
 
 
-def _extract_line(im, segmentation, line_idx: int, legacy: bool):
+def _extract_line(im, segmentation, line_idx: int, legacy: bool, page_array=None):
     line = segmentation.lines[line_idx]
     seg = dataclasses.replace(segmentation, lines=[line])
     try:
-        sub_im, _ = next(extract_polygons(im, seg, legacy=legacy))
+        sub_im, _ = next(extract_polygons(im, seg, legacy=legacy, page_array=page_array))
         return sub_im, line_idx
     except ValueError as e:
         logger.warning(f'Line extraction failed for line {line_idx}: {e}')
@@ -172,30 +188,21 @@ def _extract_line(im, segmentation, line_idx: int, legacy: bool):
 DEVICE_DOWNSCALE_LIMIT = 2.0
 
 
-def _gray_page(im: 'Image.Image') -> 'Image.Image':
-    """The page in mode 'L', converted once and cached on the image."""
-    gray = getattr(im, '_kraken_gray', None)
-    if gray is None or gray.size != im.size:
-        gray = im.convert('L')
-        try:
-            im._kraken_gray = gray
-        except AttributeError:
-            pass
-    return gray
-
-
 def _produce_entries_device(model: 'VGSLModel', im: 'Image.Image',
                             segmentation: 'Segmentation'):
     """
     Pixel-free line producer of device line extraction: computes each
     line's composed sampling grid (inference.extraction) over the page
-    array, cached on the image; no warping, resizing or masking on the
-    host, and the page's pixels are uploaded once a page instead of once a
-    line. Yields the ('empty' | 'line') protocol of :func:`_produce_entries`;
+    array, read once a call; no warping, resizing or masking on the host,
+    and the page's pixels are uploaded once a page instead of once a line.
+    Yields the ('empty' | 'line') protocol of :func:`_produce_entries`;
     'line' payloads carry a DeviceLine in both tensor slots (it duck-types
-    the shape and width the decode reads).
+    the shape and width the decode reads). A line is empty when the host
+    route would find it empty: its strip, masked by its polygon and cropped
+    to what the mask leaves, is uniform (:func:`extraction.masked_blank`).
     """
-    from kraken_tpu_torch.inference.extraction import baseline_line_desc, host_line_desc
+    from kraken_tpu_torch.inference.extraction import (baseline_line_desc, host_line_desc,
+                                                       masked_blank)
     config = model._inf_config
     batch, channels, height, width = model.input
     # bitonal pages resample with order 0 on the host (extract_polygons
@@ -203,14 +210,8 @@ def _produce_entries_device(model: 'VGSLModel', im: 'Image.Image',
     # bilinear, so those pages ride the pass-through
     force_host = im.mode == '1'
     if im.mode != 'L':
-        im = _gray_page(im)
-    page_arr = getattr(im, '_kraken_page_array', None)
-    if page_arr is None or page_arr.shape != (im.height, im.width):
-        page_arr = np.asarray(im)
-        try:
-            im._kraken_page_array = page_arr
-        except AttributeError:
-            pass
+        im = im.convert('L')
+    page_arr = np.asarray(im)
 
     legacy = False
     if model.use_legacy_polygons:
@@ -229,7 +230,7 @@ def _produce_entries_device(model: 'VGSLModel', im: 'Image.Image',
             logger.warning(f'Line geometry failed for line {line_idx}: {e}')
             desc = None
         if desc is not None and (force_host or desc.scale_y > DEVICE_DOWNSCALE_LIMIT):
-            line_im, _ = _extract_line(im, segmentation, line_idx, legacy)
+            line_im, _ = _extract_line(im, segmentation, line_idx, legacy, page_arr)
             if line_im is None or 0 in line_im.size:
                 desc = None
             else:
@@ -246,6 +247,8 @@ def _produce_entries_device(model: 'VGSLModel', im: 'Image.Image',
                     desc = None
         elif desc is not None:
             desc.page = page_arr
+            if masked_blank(desc.strip, line.boundary, config.padding > 0):
+                desc = None
         if desc is None or desc.strip.size == 0 or desc.strip.max() == desc.strip.min():
             yield 'empty', line_idx, BaselineOCRRecord('', [], [], segmentation.lines[line_idx])
         else:
@@ -284,11 +287,13 @@ def _produce_entries(model: 'VGSLModel', im: 'Image.Image',
                                       (config.padding, 0), valid_norm,
                                       dtype=np.uint8 if transfer_u8 else np.float32)
     if transforms.mode == 'L' and im.mode == 'RGB':
-        # single-channel models: convert the page once instead of every
-        # warped line patch (the JAX package's order, which deviates from
-        # the reference's per-line convert-after-extraction within one
-        # gray level); cached on the image for repeated predictions
-        im = _gray_page(im)
+        # single-channel models: convert the page once a call instead of
+        # every warped line patch (the JAX package's order, which deviates
+        # from the reference's per-line convert-after-extraction within one
+        # gray level)
+        im = im.convert('L')
+    # the straight-line extractor's page array, read once a call
+    page_arr = np.asarray(im) if im.mode == 'L' else None
 
     legacy = False
     if model.use_legacy_polygons and segmentation.type == 'baselines':
@@ -302,10 +307,12 @@ def _produce_entries(model: 'VGSLModel', im: 'Image.Image',
     if config.num_line_workers and config.num_line_workers > 0 and n_lines > 1:
         im.load()  # force decode before sharing across extraction threads
         pool = ThreadPoolExecutor(max_workers=config.num_line_workers)
-        extraction = pool.map(lambda i: _extract_line(im, segmentation, i, legacy), range(n_lines))
+        extraction = pool.map(lambda i: _extract_line(im, segmentation, i, legacy, page_arr),
+                              range(n_lines))
     else:
         pool = None
-        extraction = (_extract_line(im, segmentation, i, legacy) for i in range(n_lines))
+        extraction = (_extract_line(im, segmentation, i, legacy, page_arr)
+                      for i in range(n_lines))
 
     try:
         for line_im, line_idx in extraction:
@@ -460,34 +467,60 @@ def _dispatch_batch(model: 'VGSLModel', lines: list):
     model's device by the configured input route and launches the forward
     there without waiting for it; returns (device outputs, line meta). Runs
     on the dispatcher thread, so the kernels launch on that thread's
-    current stream.
-
-    Routes: DeviceLine entries (device line extraction) go through the
-    gather-warp; uint8 lines with ``input_transfer='packed'`` travel as one
-    dense (c, h, sum W) atlas plus (3, n) offsets, widths and sequence
-    lengths, padded back by the packed gather (the zero padding never
-    leaves the host); otherwise the padded batch is uploaded, uint8 lines
-    as bytes divided by 255 on the device.
+    current stream. With several shard devices the batch is padded to a
+    multiple of their count and each contiguous shard is built and
+    forwarded on its own device by its replica; the outputs are then a
+    list, one a shard. Shards of padding rows alone, which the decode
+    never reads, are not forwarded.
     """
-    from kraken_tpu_torch.inference.extraction import DeviceLine
     from kraken_tpu_torch.ops.ctc import greedy_decoder
-    from kraken_tpu_torch.ops.extract import dequantize, packed_gather
     config = model._inf_config
-    widths = [ts.shape[2] for ts, *_ in lines]
-    max_w = width_bucket(max(widths))
-    c, h = lines[0][0].shape[0], lines[0][0].shape[1]
+    max_w = width_bucket(max(ts.shape[2] for ts, *_ in lines))
     n = len(lines)
     # pad the batch count onto a power-of-two ladder so ragged final batches
     # reuse batch shapes; decode ignores the tail since it only walks `lines`
     n = min(1 << (n - 1).bit_length() if n > 1 else 1, config.batch_size) \
         if config.batch_size > 1 else n
     n = max(n, len(lines))
-    device, dtype = model._device, model._m_dtype
     probs = config.return_logits or config.decoder is not greedy_decoder
+    dtype = model._m_dtype
+    shards = model._shard_devices
+    if not shards:
+        x, lens = _batch_input(model, lines, max_w, n, model._device)
+        return _forward(model.net, dtype, x, lens, config.temperature, probs=probs), lines
+    from kraken_tpu_torch.parallel.mesh import shard_rows
+    n = -(-n // len(shards)) * len(shards)
+    outputs = []
+    for dev, rows in zip(shards, shard_rows(n, len(shards))):
+        part = lines[rows]
+        if not part:
+            break
+        x, lens = _batch_input(model, part, max_w, rows.stop - rows.start, dev)
+        outputs.append(_forward(model._replicas[dev], dtype, x, lens, config.temperature,
+                                probs=probs))
+    return outputs, lines
+
+
+def _batch_input(model: 'VGSLModel', lines: list, max_w: int, n: int, device):
+    """
+    The (n, c, h, max_w) input batch of `lines` and its sequence lengths on
+    `device`, by the batch's input route: DeviceLine entries (device line
+    extraction) go through the gather-warp; uint8 lines with
+    ``input_transfer='packed'`` travel as one dense (c, h, sum W) atlas
+    plus (3, n) offsets, widths and sequence lengths, padded back by the
+    packed gather (the zero padding never leaves the host); otherwise the
+    padded batch is uploaded, uint8 lines as bytes divided by 255 on the
+    device.
+    """
+    from kraken_tpu_torch.inference.extraction import DeviceLine
+    from kraken_tpu_torch.ops.extract import dequantize, packed_gather
+    config, dtype = model._inf_config, model._m_dtype
+    widths = [ts.shape[2] for ts, *_ in lines]
+    c, h = lines[0][0].shape[0], lines[0][0].shape[1]
     first = lines[0][0]
     if isinstance(first, DeviceLine):
-        x, lens = _extract_on_device(model, lines, max_w, n)
-    elif first.dtype == np.uint8 and config.input_transfer == 'packed':
+        return _extract_on_device(model, lines, max_w, n, device)
+    if first.dtype == np.uint8 and config.input_transfer == 'packed':
         # dense atlas: real pixels only, one geometric width bucket at the end
         atlas = np.zeros((c, h, width_bucket(sum(widths), base=1024)), np.uint8)
         aux = np.zeros((3, n), np.int32)
@@ -502,44 +535,41 @@ def _dispatch_batch(model: 'VGSLModel', lines: list):
         aux[2, :len(widths)] = widths
         telemetry.record_up(atlas.nbytes + aux.nbytes)
         aux_d = torch.from_numpy(aux).to(device)
-        x = packed_gather(torch.from_numpy(atlas).to(device), aux_d, max_w, dtype)
-        lens = aux_d[2]
+        return packed_gather(torch.from_numpy(atlas).to(device), aux_d, max_w, dtype), aux_d[2]
+    # the padded batch: the 'uint8' route's bytes, or float lines
+    batch = np.zeros((n, c, h, max_w), first.dtype)
+    for i, (ts, *_) in enumerate(lines):
+        batch[i, :, :, :ts.shape[2]] = ts
+    seq_lens = np.full((n,), max_w, np.int32)
+    seq_lens[:len(widths)] = widths
+    if batch.dtype == np.uint8:
+        # divided as the packed gather divides, bit for bit
+        x = dequantize(torch.from_numpy(batch).to(device), dtype)
+        telemetry.record_up(batch.nbytes + seq_lens.nbytes)
     else:
-        # the padded batch: the 'uint8' route's bytes, or float lines
-        batch = np.zeros((n, c, h, max_w), first.dtype)
-        for i, (ts, *_) in enumerate(lines):
-            batch[i, :, :, :ts.shape[2]] = ts
-        seq_lens = np.full((n,), max_w, np.int32)
-        seq_lens[:len(widths)] = widths
-        if batch.dtype == np.uint8:
-            # divided as the packed gather divides, bit for bit
-            x = dequantize(torch.from_numpy(batch).to(device), dtype)
-            telemetry.record_up(batch.nbytes + seq_lens.nbytes)
-        else:
-            x = torch.from_numpy(batch).to(device=device, dtype=dtype)
-            telemetry.record_up(x.nbytes + seq_lens.nbytes)
-        lens = torch.from_numpy(seq_lens).to(device)
-    return _forward(model, x, lens, config.temperature, probs=probs), lines
+        x = torch.from_numpy(batch).to(device=device, dtype=dtype)
+        telemetry.record_up(x.nbytes + seq_lens.nbytes)
+    return x, torch.from_numpy(seq_lens).to(device)
 
 
-def _extract_on_device(model: 'VGSLModel', lines: list, max_w: int, n: int):
+def _extract_on_device(model: 'VGSLModel', lines: list, max_w: int, n: int, device):
     """
-    The batch of DeviceLine entries, built on the device by the
-    gather-warp: the page's bytes live in a buffer resident on the device
-    (an LRU cache of 4 pages on the model, each padded onto the page bucket
-    ladder); a batch uploads only its lines' grids, masks and meta rows,
-    and the strips of lines that do not gather from that page (host
-    pass-throughs, lines of another page in a cross-page batch). Returns
-    (batch, sequence lengths) on the device.
+    The batch of DeviceLine entries, built on `device` by the gather-warp:
+    the page's bytes live in a buffer resident on the device (an LRU cache
+    of 4 page buffers on the model, keyed by the page array and the device,
+    each padded onto the page bucket ladder); a batch uploads only its
+    lines' grids, masks and meta rows, and the strips of lines that do not
+    gather from that page (host pass-throughs, lines of another page in a
+    cross-page batch). Returns (batch, sequence lengths) on the device.
     """
     from kraken_tpu_torch.inference.extraction import (PAGE_BUCKET_BASE, PAGE_BUCKET_GROWTH,
                                                        build_extract_payload, extract_batch)
-    config, device = model._inf_config, model._device
+    config = model._inf_config
     cache = model._page_buf_cache
     page_arr = next((e[0].page for e in lines if e[0].page is not None), None)
     page_buf, page_len, page_w, page_offs = None, 0, 0, None
     if page_arr is not None:
-        key = id(page_arr)
+        key = (id(page_arr), str(device))
         if key not in cache:
             flat = page_arr.reshape(-1)
             buf = np.zeros(width_bucket(flat.size, base=PAGE_BUCKET_BASE,
@@ -574,10 +604,10 @@ def _decode_batch_results(model: 'VGSLModel', outputs, lines: list):
     Segmentation so a batch may mix lines of different pages.
     """
     config = model._inf_config
-    probs, labels, confs, olens = outputs
-    labels = labels.cpu().numpy()
-    confs = confs.cpu().numpy()
-    olens = olens.cpu().numpy()
+    shards = outputs if isinstance(outputs, list) else [outputs]
+    labels, confs, olens = (np.concatenate([out[k].cpu().numpy() for out in shards])
+                            for k in (1, 2, 3))
+    probs = None if shards[0][0] is None else torch.cat([out[0].cpu() for out in shards])
     telemetry.record_down(labels.nbytes + confs.nbytes + olens.nbytes)
 
     from kraken_tpu_torch.ops.ctc import _group_runs, greedy_decoder

@@ -22,12 +22,22 @@ quantized to bytes by ``ops/segmask.quantize_u8`` and the ridge masks
 ``ops/segmask.pack_masks`` after the 20×20 max filter of the separator maps
 (``ops/segmask.maxpool20``) ('packbits'); 'auto' picks one of the last two
 from a one-off upload probe. ``device_vectorize`` carves every seam of a
-page in one launch of ``ops/seam.py``'s kernel. Inference over several
-cards (the JAX package's ``devices``) is not ported.
+page in one launch of ``ops/seam.py``'s kernel. With ``fused_ridge=False``
+the forward runs no ridge and sends back the heatmaps ('packbits' takes
+'uint8'); vectorization filters the baseline maps on the host
+(``lib/vectorization.sato_ridge``) or, with ``device_vectorize``, in the
+ridge kernel's response mode (``ops/ridge.sato_ridge_device``, one launch
+a baseline class a page), and thresholds them at 0.17 as the JAX package
+does. ``devices=N`` shards the page batch over N devices in one process:
+the batch is padded to a multiple of N with blank pages and each
+contiguous shard runs the forward on its own device with its replica of
+the network, each shard by the one-device route (a shard of blank pages
+alone is not forwarded).
 """
 import logging
 import threading
 import uuid
+from functools import partial
 from typing import TYPE_CHECKING, Any, Optional
 
 import numpy as np
@@ -41,7 +51,7 @@ from kraken_tpu_torch.lib.geometry import (line_midpoint, points_in_polygon,
 from kraken_tpu_torch.lib.polygonization import gradient_feature_map, polygonize_page
 from kraken_tpu_torch.lib.util import is_bitonal
 from kraken_tpu_torch.lib.vectorization import vectorize_lines, vectorize_regions
-from kraken_tpu_torch.ops.ridge import sato_ridge_threshold, upload_bank
+from kraken_tpu_torch.ops.ridge import sato_ridge_device, sato_ridge_threshold, upload_bank
 from kraken_tpu_torch.ops.seghead import seg_head
 from kraken_tpu_torch.ops.segmask import maxpool20, pack_masks, probe_link_mbps, quantize_u8
 
@@ -55,40 +65,55 @@ __all__ = ['prepare_segmentation', 'segmentation_pred',
            'segmentation_pred_batch', 'vec_regions', 'vec_lines']
 
 
-# the link probe of heatmap_precision='auto' runs once for a model's route
-# key; the pipeline's prefetch threads prepare the model for every page
-_ROUTE_LOCK = threading.Lock()
+# the pipeline's prefetch threads prepare the model for every page: one
+# thread at a time moves the network (two first calls that both copied it
+# to the card while one of them ran its forward left some biases wrong on
+# the card), and the link probe of heatmap_precision='auto' runs once for
+# a model's route key
+_PREPARE_LOCK = threading.Lock()
 
 
 def prepare_segmentation(model: 'VGSLModel', config) -> None:
     """
     Configures a segmentation model for inference: resolves the device
     (raising when a CUDA device is asked for and there is none), casts the
-    parameters to the precision's type and moves them there, picks the
-    baseline channels the ridge filter runs on and, on a CUDA device,
-    uploads the ridge kernel's bank (once per device: the task model
-    prepares its models for every page). Then the transfer route, as the
-    JAX package picks it: 'auto' probes the upload rate once for each
-    (device, input_transfer, heatmap_precision) and takes 'packbits' below
+    parameters to the precision's type and moves them there (and, with
+    ``devices > 1``, keeps a replica on each shard's device), picks the
+    baseline channels the ridge filter runs on in the forward (none with
+    ``fused_ridge=False``) and, on a CUDA device, uploads the ridge kernel's
+    bank (once per device: the task model prepares its models for every
+    page, from several threads in the page pipeline, one at a time). Then
+    the transfer route, as the JAX package picks it: 'auto'
+    probes the upload rate once for each (device, input_transfer,
+    heatmap_precision, fused_ridge, devices) and takes 'packbits' below
     500 Mbit/s, else 'uint8'; 'packbits' falls back to 'uint8' where the
-    class mapping has no baseline channel or lacks a separator.
+    forward filters no baseline channel or the class mapping lacks a
+    separator.
     """
     from kraken_tpu_torch.inference.recognition import _PRECISION_DTYPES, resolve_device
+    from kraken_tpu_torch.parallel.mesh import inference_devices, replicas
     device = resolve_device(config.device)
     dtype = _PRECISION_DTYPES.get(config.precision, torch.float32)
-    model.net.to(device=device, dtype=dtype)
-    model.net.eval()
-    model._inf_config = config
-    model._device = device
-    model._m_dtype = dtype
+    shards = inference_devices(config.devices, device)
     cls_map = model.user_metadata.get('class_mapping') or {}
-    model._seg_fused_channels = tuple(sorted(cls_map.get('baselines', {}).values()))
-    model._seg_ridge_threshold = float(config.ridge_threshold)
-    if device.type == 'cuda' and model._seg_fused_channels:
-        upload_bank(device)
-    model._seg_dequant = config.input_transfer == 'uint8'
-    key = (str(device), config.input_transfer, config.heatmap_precision)
-    with _ROUTE_LOCK:
+    fused = bool(config.fused_ridge)
+    key = (str(device), config.input_transfer, config.heatmap_precision, fused, len(shards))
+    with _PREPARE_LOCK:
+        model.net.to(device=device, dtype=dtype)
+        model.net.eval()
+        model._inf_config = config
+        model._device = device
+        model._m_dtype = dtype
+        model._seg_shards = shards if len(shards) > 1 else None
+        model._seg_replicas = replicas(model.net, shards) if len(shards) > 1 else None
+        model._seg_fused_channels = tuple(sorted(cls_map.get('baselines', {}).values())) \
+            if fused else ()
+        model._seg_ridge_threshold = float(config.ridge_threshold)
+        if model._seg_fused_channels:
+            for dev in set(shards):
+                if dev.type == 'cuda':
+                    upload_bank(dev)
+        model._seg_dequant = config.input_transfer == 'uint8'
         if getattr(model, '_seg_route_key', None) != key:
             hm_prec = config.heatmap_precision
             if hm_prec == 'auto':
@@ -102,18 +127,20 @@ def prepare_segmentation(model: 'VGSLModel', config) -> None:
                 hm_prec = 'uint8'  # the packed masks need the ridge and both separators
             model._seg_transfer = hm_prec
             model._seg_route_key = key
-    model._seg_packed_regions = tuple(sorted(cls_map.get('regions', {}).values()))
-    if model._seg_transfer == 'packbits':
-        model._seg_separators = (cls_map['aux']['_start_separator'],
-                                 cls_map['aux']['_end_separator'])
+        model._seg_packed_regions = tuple(sorted(cls_map.get('regions', {}).values()))
+        if model._seg_transfer == 'packbits':
+            model._seg_separators = (cls_map['aux']['_start_separator'],
+                                     cls_map['aux']['_end_separator'])
 
 
 def _seg_forward(model: 'VGSLModel', x: torch.Tensor, out_h: int, out_w: int,
-                 seq_lens: Optional[torch.Tensor] = None):
+                 seq_lens: Optional[torch.Tensor] = None, net=None):
     """
-    The device half: (a byte page divided by 255) → network → upsample +
-    sigmoid → ridge + threshold of the baseline channels (the ridge reads
-    the full-precision sigmoid), then what the route sends back. Returns
+    The device half, on the device of `x` with `net` (the model's network
+    by default, or a shard's replica): (a byte page divided by 255) →
+    network → upsample + sigmoid → ridge + threshold of the baseline
+    channels (the ridge reads the full-precision sigmoid; none with
+    ``fused_ridge=False``), then what the route sends back. Returns
     (float32 heatmaps or, for 'uint8', their bytes; uint8 ridge masks or
     None), or for 'packbits' (the packed masks, None).
     """
@@ -122,7 +149,7 @@ def _seg_forward(model: 'VGSLModel', x: torch.Tensor, out_h: int, out_w: int,
     with torch.inference_mode(), _precise_fp32(model._m_dtype):
         if model._seg_dequant:
             x = dequantize(x, model._m_dtype)
-        logits, _ = model.net(x, seq_lens)
+        logits, _ = (net or model.net)(x, seq_lens)
         probs = seg_head(logits.contiguous(), out_h, out_w)
         bins = None
         if model._seg_fused_channels:
@@ -172,11 +199,15 @@ def vec_lines(heatmap: np.ndarray,
 
     Args:
         bin_maps: thresholded ridge maps per baseline channel, from the
-            ridge kernel of the forward.
+            ridge kernel of the forward; a channel without one (every
+            channel with ``fused_ridge=False``) is filtered here and
+            thresholded at ``vectorize_lines``' 0.17.
         device_vectorize: carve the page's seams in one launch of the seam
             kernel on `device` (``ops/seam.py``; ``'cpu'`` runs its plain
-            version) instead of the host DP: the same polygons. The ridge
-            filter runs in the forward whatever this says.
+            version) instead of the host DP: the same polygons; and filter
+            the channels without a ridge map in the ridge kernel's response
+            mode on `device` (``ops/ridge.sato_ridge_device``) instead of
+            the host filter.
         sep_filters: the (start, end) separator maps after the 20x20 max
             filter, or the 0/1 masks of their difference's signs that the
             'packbits' route sends (both give the same orientation
@@ -185,6 +216,7 @@ def vec_lines(heatmap: np.ndarray,
     Returns:
         list of dicts with tags/baseline/boundary per line.
     """
+    ridge_fn = partial(sato_ridge_device, device=device) if device_vectorize else None
     st_sep = cls_map['aux']['_start_separator']
     end_sep = cls_map['aux']['_end_separator']
     if sep_filters is None:
@@ -194,11 +226,14 @@ def vec_lines(heatmap: np.ndarray,
     baselines = []
     for bl_type, idx in cls_map['baselines'].items():
         logger.debug(f'Extracting baselines for class {bl_type}')
+        # no threshold passed: the un-fused route thresholds at 0.17
+        # whatever ridge_threshold says, as the JAX package does
         baselines.extend((bl_type, bl) for bl in
                          vectorize_lines(heatmap[(st_sep, end_sep, idx), :, :],
-                                         bin_maps[idx],
                                          text_direction=text_direction[:-3],
-                                         sep_filters=sep_filters))
+                                         ridge_fn=ridge_fn,
+                                         sep_filters=sep_filters,
+                                         bin_map=bin_maps.get(idx)))
     im_feats = gradient_feature_map(scal_im)
     regions = regions or []
     # batched midpoint-in-region tests: one vectorized crossing test per
@@ -288,21 +323,36 @@ def _compute_segmentation_maps(model: 'VGSLModel', ims: list) -> list[dict[str, 
     max_w = max(p['tensor'].shape[2] for p in pages)
     if config.width_bucketing or len(pages) > 1:
         max_w = width_bucket(max_w)
-    stack = np.zeros((len(pages), pages[0]['tensor'].shape[0],
+    shards = model._seg_shards
+    # the shards split the batch evenly: blank pages pad it
+    n_rows = -(-len(pages) // len(shards)) * len(shards) if shards else len(pages)
+    stack = np.zeros((n_rows, pages[0]['tensor'].shape[0],
                       pages[0]['tensor'].shape[1], max_w),
                      np.uint8 if transfer_u8 else np.float32)
     for i, p in enumerate(pages):
         stack[i, :, :, :p['tensor'].shape[2]] = p['tensor']
     max_padded_h = max(p['padded_h'] for p in pages)
-    x = torch.from_numpy(stack).to(device=model._device)
-    if not transfer_u8:
-        x = x.to(model._m_dtype)
-    telemetry.record_up(x.nbytes)
-    widths = [p['tensor'].shape[2] for p in pages]
-    seq_lens = None
-    if any(w != max_w for w in widths):
-        seq_lens = torch.tensor(widths, dtype=torch.int32, device=model._device)
-    heat_all, ridges_all = _seg_forward(model, x, max_padded_h, max_w, seq_lens)
+    widths = [p['tensor'].shape[2] for p in pages] + [max_w] * (n_rows - len(pages))
+    lens = np.asarray(widths, np.int32) if any(w != max_w for w in widths) else None
+
+    def forward(rows: slice, device, net=None):
+        x = torch.from_numpy(stack[rows]).to(device=device)
+        if not transfer_u8:
+            x = x.to(model._m_dtype)
+        telemetry.record_up(x.nbytes)
+        seq_lens = None if lens is None else torch.from_numpy(lens[rows]).to(device)
+        return _seg_forward(model, x, max_padded_h, max_w, seq_lens, net)
+
+    if shards:
+        # shards of blank pages alone are never read: not forwarded
+        from kraken_tpu_torch.parallel.mesh import shard_rows
+        outs = [forward(rows, dev, model._seg_replicas[dev])
+                for dev, rows in zip(shards, shard_rows(n_rows, len(shards)))
+                if rows.start < len(pages)]
+        heat_all = torch.cat([out[0].cpu() for out in outs])
+        ridges_all = None if outs[0][1] is None else torch.cat([out[1].cpu() for out in outs])
+    else:
+        heat_all, ridges_all = forward(slice(None), model._device)
     cls_map = model.user_metadata['class_mapping']
     bounding_regions = model.user_metadata.get('bounding_regions', None)
 

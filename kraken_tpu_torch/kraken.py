@@ -17,9 +17,10 @@ dense byte atlas (``input_transfer='packed'``); ``segment --transfer
 bytes`` uploads the page as bytes and lets a one-off upload probe pick the
 heatmap download (``input_transfer='uint8'``, ``heatmap_precision=
 'auto'``), and ``segment --device-vectorize`` carves a page's seams in one
-launch on the card. Not yet ported: ``segment --devices``; the model
-repository commands (``list``, ``get``, ``show`` of a remote model) are not
-ported.
+launch on the card. ``segment --devices N`` and ``ocr --devices N`` shard
+page and line batches over N cards in one process (``cuda:0`` to
+``cuda:N-1``; N CPU shards with ``--device cpu``). Not yet ported: the
+model repository commands (``list``, ``get``, ``show`` of a remote model).
 """
 import dataclasses
 import logging
@@ -444,15 +445,19 @@ def binarize(ctx, threshold, zoom, escale, border, perc, range, low, high, accel
                    'and picks the heatmap download from a one-off measure of the '
                    'upload rate (bit-packed masks on a slow link, quantized heatmaps '
                    'otherwise).')
+@click.option('--devices', default=1, type=int,
+              help='Number of devices to shard page batches over (one process; '
+                   'cuda:0 to cuda:N-1, or N shards with --device cpu).')
 def segment(ctx, model, boxes, text_direction, legacy_scale, legacy_maxcolseps,
             legacy_black_colseps, legacy_no_hlines, bbox_line_padding, input_padding,
-            device_vectorize, transfer):
+            device_vectorize, transfer, devices):
     """
     Segments page images into text lines.
     """
     from kraken_tpu_torch.configs import SegmentationInferenceConfig
 
     config = SegmentationInferenceConfig(text_direction=text_direction,
+                                         devices=devices,
                                          legacy_scale=legacy_scale,
                                          legacy_maxcolseps=legacy_maxcolseps,
                                          legacy_black_colseps=legacy_black_colseps,
@@ -515,6 +520,9 @@ def segment(ctx, model, boxes, text_direction, legacy_scale, legacy_maxcolseps,
               help='Softmax temperature')
 @click.option('--num-line-workers', default=2, type=int,
               help='Number of line extraction workers. 0 for in-process extraction.')
+@click.option('--devices', default=1, type=int,
+              help='Number of devices to shard line batches over (one process; '
+                   'cuda:0 to cuda:N-1, or N shards with --device cpu).')
 @click.option('-n', '--reorder/--no-reorder', default=True,
               help='Reorder code points to logical order in output.')
 @click.option('--base-dir', default='auto', type=click.Choice(['L', 'R', 'auto']),
@@ -536,7 +544,7 @@ def segment(ctx, model, boxes, text_direction, legacy_scale, legacy_maxcolseps,
               help='Upload format of line batches: "bytes" uploads them as one dense '
                    'uint8 atlas that the packed gather pads back on the device '
                    '(identical activations to a byte upload of the padded batch).')
-def ocr(ctx, model, batch_size, pad, temperature, num_line_workers, reorder, base_dir,
+def ocr(ctx, model, batch_size, pad, temperature, num_line_workers, devices, reorder, base_dir,
         no_segmentation, text_direction, no_legacy_polygons, linetype, decoder, beam_size,
         transfer):
     """
@@ -571,6 +579,7 @@ def ocr(ctx, model, batch_size, pad, temperature, num_line_workers, reorder, bas
                                         padding=pad,
                                         temperature=temperature,
                                         num_line_workers=num_line_workers,
+                                        devices=devices,
                                         bidi_reordering=bidi,
                                         text_direction=text_direction,
                                         no_legacy_polygons=no_legacy_polygons,

@@ -599,10 +599,14 @@ def _extract_straight_line(page: np.ndarray, pl: np.ndarray,
                                        nz_cols[0]:nz_cols[-1] + 1])
 
 
-def extract_polygons(im: 'Image.Image', bounds, legacy: bool = False):
+def extract_polygons(im: 'Image.Image', bounds, legacy: bool = False, page_array=None):
     """
     Yields the sub-images of `im` for every line in the segmentation,
     dewarped to a straight baseline, preserving order.
+
+    Straight lines of a grayscale page are cut from the page's array, read
+    once a call (or `page_array`, the caller's array of the same pixels);
+    nothing is cached on the image, so its pixels may change between calls.
 
     For two-point (straight) baselines only a rotation is needed; arbitrary
     polylines go through a piecewise mesh warp (new path) or a Delaunay
@@ -618,6 +622,7 @@ def extract_polygons(im: 'Image.Image', bounds, legacy: bool = False):
         if im.mode == '1':
             order = 0
             im = im.convert('L')
+            page_array = None
         else:
             order = 1
         for line in bounds.lines:
@@ -643,17 +648,9 @@ def extract_polygons(im: 'Image.Image', bounds, legacy: bool = False):
                 # below remains for other modes and may differ in single
                 # mask-boundary pixels.
                 if im.mode == 'L':
-                    # per-page array cache (predictions treat the input
-                    # image as immutable, like the reference; the size
-                    # guard catches at least resized/replaced content)
-                    page_arr = getattr(im, '_kraken_page_array', None)
-                    if page_arr is None or page_arr.shape != (im.height, im.width):
-                        page_arr = np.asarray(im)
-                        try:
-                            im._kraken_page_array = page_arr
-                        except Exception:
-                            pass
-                    out = _extract_straight_line(page_arr, pl,
+                    if page_array is None:
+                        page_array = np.asarray(im)
+                    out = _extract_straight_line(page_array, pl,
                                                  baseline.astype(float),
                                                  c_min, c_max, r_min, r_max,
                                                  order)

@@ -3,19 +3,20 @@ kraken_tpu_torch.lib.vectorization
 ~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~~
 
 Heatmap → vector conversion for the BLLA segmenter: baseline vectorization
-(skeletonization of the thresholded ridge map, endpoint linking,
-blob-boundary extension, orientation from separator maps) and region
-vectorization.
+(ridge filtering, skeletonization, endpoint linking, blob-boundary
+extension, orientation from separator maps) and region vectorization.
 
 Functional equivalent of the reference's vectorize_lines/vectorize_regions
 (kraken/lib/segmentation.py:316-450) built on scipy/OpenCV instead of
-scikit-image/shapely: Zhang-Suen thinning is implemented directly,
-minimum-cost endpoint linking runs as a sparse-graph Dijkstra over the
-skeleton plus a one-pixel halo (mirroring the reference's MCP wavefronts,
-which stop one step off the zero-cost skeleton), and polygon tracing uses
-OpenCV contours. A copy of the JAX package's
-``lib/vectorization.py`` without its host Sato ridge filter: the port's
-filter runs in the segmentation forward (``ops/ridge.py``).
+scikit-image/shapely: the Sato ridge filter and Zhang-Suen thinning are
+implemented directly, minimum-cost endpoint linking runs as a sparse-graph
+Dijkstra over the skeleton plus a one-pixel halo (mirroring the reference's
+MCP wavefronts, which stop one step off the zero-cost skeleton), and
+polygon tracing uses OpenCV contours. A copy of the JAX package's
+``lib/vectorization.py``. The segmentation forward usually hands
+:func:`vectorize_lines` the thresholded ridge map from the ridge kernel
+(``bin_map``); the host :func:`sato_ridge` serves the ``fused_ridge=False``
+route.
 """
 import logging
 from typing import Optional
@@ -25,14 +26,40 @@ import numpy as np
 from scipy import sparse
 from scipy.ndimage import convolve, label as nd_label
 
-from kraken_tpu_torch.lib.fastfilters import maximum_filter
+from kraken_tpu_torch.lib.fastfilters import gaussian_filter, maximum_filter
 from scipy.sparse.csgraph import dijkstra
 
 from kraken_tpu_torch.lib.geometry import douglas_peucker, polyline_dists
 
 logger = logging.getLogger(__name__)
 
-__all__ = ['skeletonize', 'vectorize_lines', 'vectorize_regions']
+__all__ = ['sato_ridge', 'skeletonize', 'vectorize_lines', 'vectorize_regions']
+
+
+def sato_ridge(im: np.ndarray, sigmas=(1, 3, 5, 7, 9), black_ridges: bool = False) -> np.ndarray:
+    """
+    Sato tubularity/ridge filter: per-scale Hessian eigenvalue analysis,
+    maximum response over scales (Sato et al. 1998). Bright ridges on dark
+    background for black_ridges=False.
+    """
+    img = im.astype(np.float32)
+    if black_ridges:
+        img = -img
+    response = np.zeros_like(img)
+    for sigma in sigmas:
+        # scale-normalized Hessian
+        hxx = gaussian_filter(img, sigma, order=(0, 2), mode='constant') * sigma ** 2
+        hyy = gaussian_filter(img, sigma, order=(2, 0), mode='constant') * sigma ** 2
+        hxy = gaussian_filter(img, sigma, order=(1, 1), mode='constant') * sigma ** 2
+        # eigenvalues of [[hyy, hxy], [hxy, hxx]]; lam1 <= lam2
+        tmp = np.sqrt((hyy - hxx) ** 2 + 4 * hxy ** 2)
+        lam1 = 0.5 * (hyy + hxx - tmp)
+        lam2 = 0.5 * (hyy + hxx + tmp)
+        # bright ridge: most negative eigenvalue across the ridge
+        low = np.minimum(lam1, lam2)
+        resp = np.where(low < 0, -low, 0)
+        response = np.maximum(response, resp)
+    return response
 
 
 _ZS_NEIGHBORS = [(-1, 0), (-1, 1), (0, 1), (1, 1), (1, 0), (1, -1), (0, -1), (-1, -1)]
@@ -292,22 +319,31 @@ def _extend_to_blob_boundary(lines: list, bin_bl_map: np.ndarray) -> list:
     return lines
 
 
-def vectorize_lines(im: np.ndarray, bin_map: np.ndarray, min_length: int = 5,
+def vectorize_lines(im: np.ndarray, threshold: float = 0.17, min_length: int = 5,
                     text_direction: str = 'horizontal',
                     max_endpoints: int = 400,
-                    sep_filters: Optional[tuple] = None) -> list:
+                    ridge_fn=None,
+                    sep_filters: Optional[tuple] = None,
+                    bin_map: Optional[np.ndarray] = None) -> list:
     """
     Vectorizes baselines from a (3, H, W) probability stack of
     (start_separator, end_separator, baseline) maps.
 
     Args:
-        bin_map: the thresholded Sato ridge map (H, W) of the baseline map,
-            from :func:`kraken_tpu_torch.ops.ridge.sato_ridge_threshold`
-            (the segmentation forward runs it right after the network).
+        threshold: threshold of the ridge response (unless `bin_map` is
+            given).
+        ridge_fn: alternative Sato ridge filter implementation (e.g. the
+            ridge kernel's response mode,
+            :func:`kraken_tpu_torch.ops.ridge.sato_ridge_device`); defaults
+            to the host filter :func:`sato_ridge`.
         sep_filters: precomputed (maximum_filter(st_map, 20),
             maximum_filter(end_map, 20)) pair — the separator channels are
             shared across baseline classes, so multi-class callers compute
             them once.
+        bin_map: precomputed thresholded ridge map (H, W) bool, from
+            :func:`kraken_tpu_torch.ops.ridge.sato_ridge_threshold` (the
+            segmentation forward runs it right after the network), skipping
+            the ridge filter here.
 
     Returns:
         A list of [(x, y), ...] baseline polylines, oriented by the
@@ -315,8 +351,12 @@ def vectorize_lines(im: np.ndarray, bin_map: np.ndarray, min_length: int = 5,
     """
     if text_direction not in ('horizontal', 'vertical'):
         raise ValueError(f'Invalid text direction "{text_direction}"')
-    st_map, end_map = im[0], im[1]
-    bin_bl_map = np.asarray(bin_map, bool)
+    st_map, end_map, bl_map = im[0], im[1], im[2]
+    if bin_map is not None:
+        bin_bl_map = np.asarray(bin_map, bool)
+    else:
+        ridge = (ridge_fn or sato_ridge)(bl_map, black_ridges=False)
+        bin_bl_map = ridge > threshold
     skel = skeletonize(bin_bl_map)
     extrema = _endpoints(skel)
     if len(extrema) > max_endpoints:

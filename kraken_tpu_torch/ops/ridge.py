@@ -21,6 +21,11 @@ plain PyTorch version (the JAX package's two convolutions). The kernel
 reads its taps from constant memory, which :func:`upload_bank` fills once
 per device and process (the bank is the same for every model).
 
+:func:`sato_ridge_device` is the un-thresholded response of one (H, W) map
+(the JAX package's ``sato_ridge_device``, which the ``fused_ridge=False``
+route reads back with ``device_vectorize``): the same kernel in its
+response mode, which writes only the float32 response.
+
 :func:`plan` mirrors in plain Python the launch the kernel takes (tile,
 threads, shared memory, grid) and :func:`macs_per_pixel` the multiply-adds
 a pixel it does; :func:`geometry` asks the kernel source itself.
@@ -36,7 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ['sato_ridge_threshold', 'sato_ridge_reference', 'sato_kernel_bank',
+__all__ = ['sato_ridge_threshold', 'sato_ridge_device', 'sato_ridge_reference', 'sato_kernel_bank',
            'upload_bank', 'plan', 'geometry', 'macs_per_pixel', 'bound_slots_per_pixel',
            'SIGMAS']
 
@@ -278,16 +283,61 @@ def sato_ridge_threshold(probs: torch.Tensor, channels: Sequence[int], threshold
     mask = torch.empty(out_shape, dtype=torch.uint8, device=probs.device)
     if mask.numel() == 0:
         return mask
-    upload_bank(probs.device)
-    fn = _kernel()
-    chans = (ctypes.c_int * len(channels))(*channels)
-    err = fn(probs.data_ptr(), N, K, H, W, chans, len(channels), float(threshold),
-             mask.data_ptr(), response.data_ptr() if response is not None else None,
-             probs.device.index, torch.cuda.current_stream(probs.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'sato_ridge_threshold kernel launch failed: cudaError {err}')
+    _launch(probs, channels, threshold, mask, response)
     sato_ridge_threshold.launches += 1
     return mask
 
 
 sato_ridge_threshold.launches = 0
+
+
+def _launch(probs: torch.Tensor, channels: list, threshold: float,
+            mask: Optional[torch.Tensor], response: Optional[torch.Tensor]) -> None:
+    """One launch of the kernel on the current stream of `probs`' device
+    (float32, contiguous, on a card); no mask buffer is its response mode."""
+    N, K, H, W = probs.shape
+    upload_bank(probs.device)
+    fn = _kernel()
+    chans = (ctypes.c_int * len(channels))(*channels)
+    err = fn(probs.data_ptr(), N, K, H, W, chans, len(channels), float(threshold),
+             mask.data_ptr() if mask is not None else None,
+             response.data_ptr() if response is not None else None,
+             probs.device.index, torch.cuda.current_stream(probs.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'sato ridge kernel launch failed: cudaError {err}')
+
+
+def sato_ridge_device(im: np.ndarray, sigmas=SIGMAS, black_ridges: bool = False,
+                      device='cuda') -> np.ndarray:
+    """
+    The Sato ridge response of one (H, W) map, un-thresholded: the JAX
+    package's ``ops/ridge.py:sato_ridge_device``, negated first with
+    `black_ridges`. Returns a float32 (H, W) numpy array.
+
+    On a CUDA device the map is uploaded and the kernel of ``csrc/ridge.cu``
+    runs in its response mode on a (1, 1, H, W) view, channel 0 (one launch,
+    counted in ``sato_ridge_device.launches``); its taps are fixed at the
+    five default sigmas, so any other `sigmas` raises there. On the CPU the
+    plain version runs, for any sigmas.
+    """
+    dev = torch.device(device)
+    x = torch.from_numpy(np.ascontiguousarray(im, np.float32))
+    if x.dim() != 2:
+        raise ValueError(f'sato_ridge_device takes one (H, W) map, got {tuple(x.shape)}')
+    if black_ridges:
+        x = -x
+    if dev.type == 'cpu':
+        return sato_ridge_reference(x[None], tuple(sigmas))[0].numpy()
+    if dev.type != 'cuda':
+        raise ValueError(f'sato_ridge_device runs on cpu or cuda, not {dev}')
+    if tuple(sigmas) != SIGMAS:
+        raise ValueError(f'the ridge kernel filters at sigmas {SIGMAS}, not {tuple(sigmas)}')
+    H, W = x.shape
+    response = torch.empty((1, 1, H, W), dtype=torch.float32, device=dev)
+    if response.numel():
+        _launch(x.to(dev)[None, None], [0], 0.0, None, response)
+        sato_ridge_device.launches += 1
+    return response[0, 0].cpu().numpy()
+
+
+sato_ridge_device.launches = 0

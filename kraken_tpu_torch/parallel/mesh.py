@@ -22,7 +22,16 @@ loopback: NCCL between cards (rank r on ``cuda:r``), gloo on the CPU. Beside
 NCCL a gloo group carries the host's small messages (loader states, padded
 widths, seeds, stop decisions), so that they never wait behind the card's
 queue. A failed collective raises; nothing carries on with fewer ranks.
+
+Inference over several devices runs in one process, as the JAX package's
+``make_infer_fn`` runs over its mesh: :func:`inference_devices` names the
+devices of a config's ``devices``, :func:`replicas` keeps one copy of the
+network a device, and :func:`make_infer_fn` pads a line batch to a
+multiple of the device count, forwards one contiguous shard on each device
+and gathers the results in order (the recognition and segmentation engines
+shard their batches the same way, with their own input routes).
 """
+import copy
 import datetime
 import os
 from dataclasses import dataclass
@@ -33,7 +42,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ['World', 'init_world', 'world_from_env', 'pad_batch_to_multiple', 'shard_batch',
-           'replicate', 'make_train_step', 'recorded_steps', 'BUCKET_BYTES']
+           'replicate', 'make_train_step', 'recorded_steps', 'BUCKET_BYTES',
+           'inference_devices', 'replicas', 'shard_rows', 'make_infer_fn']
 
 # the gradient all-reduce's flat buckets (DDP's default bucket_cap_mb)
 BUCKET_BYTES = 25 * 2**20
@@ -256,3 +266,79 @@ def recorded_steps(module, batch, world: Optional[World], steps: int, **loss_kwa
         losses.append(float(step(batch, **loss_kwargs)))
     return {'losses': losses, 'grads': grads,
             'params': [p.detach().cpu().clone() for p in module.parameters()]}
+
+
+def inference_devices(devices: int, device) -> list:
+    """
+    The devices an inference config's ``devices`` shards over: ``cuda:0``
+    to ``cuda:N-1`` when `device` is a CUDA device (raising when fewer
+    cards are visible, as the JAX package raises when its mesh lacks
+    devices), else N times `device` (CPU shards).
+    """
+    n = int(devices or 1)
+    if n < 1:
+        raise ValueError(f'devices must be at least 1, not {devices}')
+    dev = torch.device(device)
+    if dev.type != 'cuda':
+        return [dev] * n
+    if n == 1:
+        return [dev]
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if visible < n:
+        raise ValueError(f'devices={n} requested but only {visible} CUDA device(s) are visible')
+    return [torch.device('cuda', i) for i in range(n)]
+
+
+def replicas(net: torch.nn.Module, devices: Sequence[torch.device]) -> dict:
+    """One copy of `net` on each distinct device of `devices` (the network
+    itself where it already lies there), in its mode and dtype."""
+    home = next(iter(net.parameters()), torch.empty(0)).device
+    out = {}
+    for dev in map(torch.device, devices):
+        if dev not in out:
+            out[dev] = net if dev == home else copy.deepcopy(net).to(dev)
+    return out
+
+
+def shard_rows(n: int, shards: int) -> list:
+    """The contiguous rows of each of `shards` shards of a batch of `n` (a
+    multiple of `shards`)."""
+    if n % shards:
+        raise ValueError(f'a batch of {n} does not split over {shards} shards')
+    per = n // shards
+    return [slice(i * per, (i + 1) * per) for i in range(shards)]
+
+
+def make_infer_fn(net: torch.nn.Module, devices: Sequence, temperature: float = 1.0):
+    """
+    The recognition forward sharded over `devices` in one process, the
+    counterpart of the JAX package's ``parallel/mesh.py:make_infer_fn``:
+    one replica of `net` a device; ``fn(x, seq_lens) -> (labels, confs,
+    olens)`` pads the (B, C, H, W) batch and its lengths (host arrays or
+    CPU tensors) to a multiple of the device count with
+    :func:`pad_batch_to_multiple`, forwards each contiguous shard and runs
+    the tail kernel (``ops/tail.py``) on that shard's device, on its
+    current stream (a shard of padding alone is not forwarded), and returns
+    the per-frame labels, confidences and the output lengths as host arrays
+    in batch order, without the padding.
+    `devices` may repeat a device (several shards on one card, or CPU
+    shards).
+    """
+    from kraken_tpu_torch.inference.recognition import _forward
+    devices = [torch.device(d) for d in devices]
+    nets = replicas(net, devices)
+    dtype = next(iter(net.parameters()), torch.empty(0)).dtype
+
+    def fn(x, seq_lens):
+        x, seq_lens = np.asarray(x), np.asarray(seq_lens, np.int32)
+        batch = pad_batch_to_multiple({'x': x, 'seq_lens': seq_lens}, len(devices))
+        outs = []
+        for dev, rows in zip(devices, shard_rows(len(batch['x']), len(devices))):
+            if rows.start >= len(x):
+                break   # a shard of padding alone is never read
+            xs = torch.from_numpy(np.ascontiguousarray(batch['x'][rows])).to(dev, dtype)
+            lens = torch.from_numpy(np.ascontiguousarray(batch['seq_lens'][rows])).to(dev)
+            outs.append(_forward(nets[dev], dtype, xs, lens, temperature, probs=False))
+        return tuple(np.concatenate([o[k].cpu().numpy() for o in outs])[:len(x)]
+                     for k in (1, 2, 3))
+    return fn

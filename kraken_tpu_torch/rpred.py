@@ -15,6 +15,8 @@ import warnings
 from collections import defaultdict
 from typing import TYPE_CHECKING, Optional, Union
 
+import numpy as np
+
 from kraken_tpu_torch.containers import BaselineOCRRecord, BBoxOCRRecord
 from kraken_tpu_torch.dataset import ImageInputTransforms
 from kraken_tpu_torch.exceptions import KrakenInputException
@@ -133,6 +135,8 @@ class mm_rpred:
             raise ValueError('Input lines carry no tags and the model mapping has no default.')
 
         self.im = im
+        # the straight-line extractor's page array, read once for this run
+        self._page_array = np.asarray(im) if im.mode == 'L' else None
         self.nets = nets
         self.bidi_reordering = bidi_reordering
         self.pad = pad
@@ -173,7 +177,8 @@ class mm_rpred:
         legacy = self._choose_legacy(net)
         seg = dataclasses.replace(self.bounds, lines=[line])
         try:
-            box, _ = next(extract_polygons(self.im, seg, legacy=legacy))
+            box, _ = next(extract_polygons(self.im, seg, legacy=legacy,
+                                           page_array=self._page_array))
         except ValueError as e:
             logger.warning(f'Extracting line failed: {e}')
             return empty('', [], [], line), None, None, None

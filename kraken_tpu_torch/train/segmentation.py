@@ -297,7 +297,7 @@ class SegmentationModel(TrainingModule):
                 gt_polylines = []
                 for i, cls_idx in enumerate(bl_idxs):
                     stack = np.stack([pred[start_idx], pred[end_idx], pred[cls_idx]])
-                    for pl in vectorize_lines(stack, bins[0, i]):
+                    for pl in vectorize_lines(stack, bin_map=bins[0, i]):
                         pred_polylines.append(interpolate_polyline(np.asarray(pl, float)))
                     for bl in gt_baselines.get(cls_idx, []):
                         gt_polylines.append(interpolate_polyline(np.asarray(bl, float)))

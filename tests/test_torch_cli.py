@@ -270,8 +270,6 @@ def test_without_a_card_the_default_device_fails(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize('args, says', [
-    (['segment', '-bl', '--devices', '2'], 'No such option'),
-    (['ocr', '-m', 'x', '--devices', '2'], 'No such option'),
     (['list'], 'No such command'),
     (['get', 'x'], 'No such command'),
 ], ids=lambda v: ' '.join(v) if isinstance(v, list) else None)

@@ -33,14 +33,14 @@ SHARED = {'RecognitionInferenceConfig': ('precision', 'batch_size', 'raise_on_er
                                          'temperature', 'return_logits', 'return_line_image',
                                          'padding', 'num_line_workers', 'no_legacy_polygons',
                                          'bidi_reordering', 'text_direction', 'input_transfer',
-                                         'line_extraction'),
+                                         'line_extraction', 'devices'),
           'SegmentationInferenceConfig': ('precision', 'batch_size', 'raise_on_error',
                                           'text_direction', 'legacy_scale', 'legacy_maxcolseps',
                                           'legacy_black_colseps', 'legacy_no_hlines',
                                           'bbox_line_padding', 'input_padding',
                                           'ridge_threshold', 'heatmap_precision',
                                           'input_transfer', 'device_vectorize',
-                                          'width_bucketing')}
+                                          'width_bucketing', 'fused_ridge', 'devices')}
 
 
 def _warnings(caplog) -> list[str]:

@@ -509,6 +509,8 @@ def test_device_route_mixes_page_lines_and_strips_across_pages(resources, arabic
         num_line_workers=0, batch_size=4, padding=1, device='cpu', line_extraction='device'))
     pages = [(small, small_seg), (small.copy(), small_seg)]
     ref = [list(model.predict(p, s)) for p, s in pages]
+    # every call reads its pages anew: count the stream's page buffers alone
+    model._page_buf_cache.clear()
     out = list(recognition_stream(model, pages))
     for (_, _, records), expected in zip(out, ref):
         assert [r.prediction for r in records] == [r.prediction for r in expected]

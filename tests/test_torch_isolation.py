@@ -50,7 +50,8 @@ seg = Segmentation(type='baselines', imagename=res + '/bw.png', text_direction='
                                        boundary=[[0, 0], [2543, 0], [2543, 155], [0, 155]])])
 assert len(list(vmodel.predict(Image.open(res + '/000236.png'), seg))) == 1
 from kraken_tpu_torch.lib import telemetry
-for route in ({'line_extraction': 'device'}, {'input_transfer': 'packed'}):
+for route in ({'line_extraction': 'device'}, {'input_transfer': 'packed'},
+              {'line_extraction': 'device', 'devices': 2}):
     vmodel.prepare_for_inference(RecognitionInferenceConfig(device='cpu', num_line_workers=0,
                                                             **route))
     with telemetry.collect() as stats:
@@ -63,7 +64,8 @@ page = Image.open(res + '/170025120000003,0074.jpg').resize((354, 512))
 assert len(SegmentationTaskModel.load_model().predict(
     page, SegmentationInferenceConfig(device='cpu')).lines) > 10
 for route in ({'input_transfer': 'uint8', 'heatmap_precision': 'packbits'},
-              {'heatmap_precision': 'auto', 'device_vectorize': True}):
+              {'heatmap_precision': 'auto', 'device_vectorize': True},
+              {'fused_ridge': False, 'device_vectorize': True, 'devices': 2}):
     assert len(SegmentationTaskModel.load_model().predict(
         page, SegmentationInferenceConfig(device='cpu', **route)).lines) > 10
 assert blla.segment(page, device='cpu').type == 'baselines'
@@ -165,9 +167,10 @@ print('FORBIDDEN', bad)
 def test_port_runs_without_jax_or_kraken_tpu(resources):
     """A fresh interpreter runs the port's recognition forward and engine
     (an ocropy and a transformer network among them; device line extraction
-    and the packed byte upload), its segmentation (the task model, also with
-    the byte upload, the packed and quantized downloads and the device seam
-    carver, and the legacy ``blla.segment``), its
+    and the packed byte upload; two CPU shards), its segmentation (the task
+    model, also with the byte upload, the packed and quantized downloads,
+    the device seam carver and the un-fused ridge route on two CPU shards,
+    and the legacy ``blla.segment``), its
     forced alignment, its neural reading order, its CLI (``segment -bl
     ocr`` to ALTO), its page pipeline, the host and the device nlbin, the
     legacy box segmenter, the PDF extractor, ``ketos test`` on path input,

@@ -266,7 +266,7 @@ def test_vectorize_lines_equals_jax(synthetic_maps, order):
     mask = sato_ridge_threshold(torch.from_numpy(np.ascontiguousarray(maps))[None], [2],
                                 THRESHOLD)[0, 0].numpy().astype(bool)
     np.testing.assert_array_equal(mask, jv.sato_ridge(maps[2]) > THRESHOLD)
-    assert tv.vectorize_lines(maps, mask) == want
+    assert tv.vectorize_lines(maps, bin_map=mask) == want
 
 
 def test_vectorize_regions_equals_jax():
