@@ -4,42 +4,60 @@
 // 1. extract_kernel, the gather-warp of device line extraction. Replaces
 //    kraken_tpu/inference/extraction.py:486 extract_batch_jnp (the XLA
 //    program fused into the recognition forward by make_extract_forward,
-//    :594). From a flat uint8 buffer (the page resident on the card, then
-//    an atlas of packed line strips), each line's (129, 3, 3) grid of
-//    (x, y, row) knots, its (65, 2) mask envelope and its meta row (offset,
-//    w, h, W_l, seq_len, left pad, row stride, supersampling flag) it
-//    writes the padded (n, 1, H, max_w) batch in the model's type, the cast
-//    the JAX forward does next folded in. Per output pixel and each of the
-//    ss x ss subsamples: column-lerp the three knots of the bracketing grid
+//    :594). It reads the line pixels from two uint8 buffers addressed as
+//    one: the page resident on the card, then the batch's atlas of packed
+//    line strips (an index at or past the page's length reads the atlas).
+//    From them, each line's (129, 3, 3) grid of (x, y, row) knots, its
+//    (65, 2) mask envelope and its meta row (offset, w, h, W_l, seq_len,
+//    left pad, row stride, supersampling flag), it writes the padded
+//    (n, 1, H, max_w) batch in the model's type, the cast the JAX forward
+//    does next folded in. Per output pixel and each of the ss x ss
+//    subsamples: column-lerp the three knots of the bracketing grid
 //    columns, row-lerp piecewise about the middle knot, bilinear-sample the
 //    buffer with the JAX clamps, test the mask envelope with its half pixel
 //    of slack; average the subsamples (one centre sample, added ss^2
 //    times, where the flag is 0), paint the pad columns 0 and invert the
 //    ink as (255 - v) / 255.
 //
-//    What bounds it: bytes. The output is written once and the lines'
-//    strips are read (each pixel of a strip about (ss x 4) times, from L1
-//    and L2: the fixture page is 2.2 MB, the L2 50 MB); the grids, masks
-//    and meta are 5 KB a line. The least bytes are the output plus the
-//    strips. A pixel's arithmetic is about 60 fp32 operations a subsample,
-//    far below the card's rates at these byte counts.
+//    What bounds it: the instructions dispatched. The bytes are few (the
+//    output written once, each strip read from L1 and L2 about ss x 4
+//    times; the fixture page is 2.2 MB, the L2 50 MB), but every subsample
+//    runs a division, four clamps, two floors, four byte loads and the
+//    bilinear weights, each step rounded on its own: about 70 instructions
+//    a subsample in SASS (chip_smoke.py's EXTRACT_SLOTS_SAMPLE).
 //
-//    Design: a block of 32 x 8 threads takes 32 columns and 32 rows of one
+//    Design: a block of 32 x 8 threads takes 32 columns and 64 rows of one
 //    line (grid: column tiles x row tiles x lines); lane x is a column, so
-//    each store of a warp is 32 consecutive outputs. The column half of
-//    the map (the nine lerped knot values and the two envelope rows)
-//    depends on the column and the column subsample only: a thread computes
-//    it once for its column, keeps it in registers and walks its 4 rows
-//    with it; only the row lerp, the sample and the envelope test are done
-//    a pixel. The grids and masks are read through the read-only cache (a
-//    warp's lanes read the same or neighbouring knots). Pad columns and
-//    batch-pad rows only write zeros. Nothing is staged in shared memory,
-//    and there is no barrier.
+//    each store of a warp is 32 consecutive outputs, and a thread walks 8
+//    rows. The column half of the map depends on the column and its
+//    subsample only: a thread computes it once and keeps it in registers,
+//    each piece of the row lerp ready to use (its start row, its divisor
+//    clamped to 1e-3, its x and y start and step) and the envelope as its
+//    two thresholds. A subsample tests the envelope first and samples only
+//    inside it (outside, the plain version adds 0). It runs the division
+//    of the piece its row lies in only: the quotient of the other piece is
+//    never used, and a division is a pure function. Floors take no
+//    float-to-int conversion: adding 2^23 rounded down leaves floor(v) in
+//    the low mantissa bits (exact for 0 <= v < 2^23). The line's window,
+//    every byte its samples can read ([off, off + (h - 1) stride + w - 1]),
+//    is checked once a thread: where it lies inside the page or inside the
+//    atlas (every line the engine builds), samples address it by 32-bit
+//    offsets from its first byte with no clamp, the neighbours at +1 and
+//    +stride; any other line takes the plain version's 64-bit indices into
+//    the two buffers taken as one (a negative one counted from the end,
+//    then each clamped, as jnp indexing takes them). The mean is a
+//    multiply by 1 / ss^2 where ss^2 is a power of two (ss 1, 2, 4:
+//    exact), a division for ss 3. Nothing is staged in shared memory, and
+//    there is no barrier:
+//    4 or 16 rows a thread, the column maps computed once a block and
+//    shared behind a barrier, and the envelope test as a select after the
+//    sample were each slower on the pipeline's widest batch.
 //
 //    Every step is rounded as the plain version (ops/extract.py) rounds it
 //    on either device: each product and sum by its own intrinsic, so none
-//    is contracted into an FMA, and the divisions are IEEE divisions. The
-//    kernel equals its plain version bit for bit.
+//    is contracted into an FMA, every quotient an IEEE division, the
+//    clamps NaN-propagating as torch.clamp. The kernel equals its plain
+//    version bit for bit.
 //
 // 2. packed_gather_kernel, the atlas gather of input_transfer='packed'.
 //    Replaces the gather of kraken_tpu/inference/recognition.py:158
@@ -57,12 +75,19 @@
 
 namespace {
 
-constexpr int kGrid = 129;       // knot columns of a line's grid (M_GRID)
-constexpr int kMask = 65;        // envelope knots of a line (M_MASK)
-constexpr int kTileC = 32;       // columns a block: a warp's lanes
-constexpr int kRowThreads = 8;   // warps a block
-constexpr int kTileR = 32;       // rows a block, 4 a thread
+constexpr int kGrid = 129;          // knot columns of a line's grid (M_GRID)
+constexpr int kMask = 65;           // envelope knots of a line (M_MASK)
+constexpr int kTileC = 32;          // columns a block: a warp's lanes
+constexpr int kRowThreads = 8;      // warps a block
+constexpr int kRowsPerThread = 8;
+constexpr int kTileR = kRowThreads * kRowsPerThread;  // rows a block
 constexpr int kGatherThreads = 256;
+// the widest and tallest strip the direct route takes: its coordinates stay
+// below 2^23, where the round-down add of 2^23 floors exactly
+constexpr int kMaxSide = 1 << 22;
+constexpr float kTwo23 = 8388608.f;
+// the most bytes the two buffers may hold together (32-bit offsets)
+constexpr long long kMaxBytes = 0x7fffffffLL;
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
@@ -75,11 +100,21 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 template <>
 __device__ __forceinline__ __half from_float<__half>(float v) { return __float2half_rn(v); }
 
+// torch.maximum / torch.minimum: NaN if either is NaN (one instruction)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
 // torch.clamp / jnp.clip: NaN stays NaN
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
-  return v != v ? v : fminf(fmaxf(v, lo), hi);
+  return min_nan(max_nan(v, lo), hi);
 }
-__device__ __forceinline__ float max_nan(float v, float lo) { return v != v ? v : fmaxf(v, lo); }
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
 __device__ __forceinline__ int floor_int(float v) { return (int)floorf(v); }
 __device__ __forceinline__ float lerp(float a, float b, float t) {
@@ -91,78 +126,178 @@ __device__ __forceinline__ float sub_offset(int k, int ss) {
   return (float)(((double)k + 0.5) / ss - 0.5);
 }
 
-// the column half of the map at one column subsample: the nine lerped
-// (x, y, row) values of the three row knots (knot k's coordinate j at
-// 3 k + j) and the envelope's two rows
+// the column half of the map at one column subsample: each piece of the
+// row lerp (upper: rows above the middle knot's row `mid`; lower: from it
+// on, starting at `mid`) as its start row, divisor and its x and y start
+// and step; the envelope's two thresholds
 struct Column {
-  float p[9];
-  float env[2];
+  float mid;
+  float r_up, den_up, x_up, dx_up, y_up, dy_up;
+  float den_lo, x_lo, dx_lo, y_lo, dy_lo;
+  float top, bottom;
 };
 
-__device__ __forceinline__ void column_map(const float* __restrict__ grid,
-                                           const float* __restrict__ mask, float cf, float stepg,
-                                           float stepm, Column& col) {
+__device__ __forceinline__ Column column_map(const float* __restrict__ grid,
+                                             const float* __restrict__ mask, float cf,
+                                             float stepg, float stepm) {
   const float g = __fdiv_rn(cf, stepg);
   const int gi = clampi(floor_int(g), 0, kGrid - 2);
   const float gf = clampf(__fsub_rn(g, (float)gi), 0.f, 1.f);
   const float* lo = grid + gi * 9;
+  // knot k's coordinate j at 3 k + j: (x, y, row)
+  float p[9];
 #pragma unroll
-  for (int k = 0; k < 9; ++k) col.p[k] = lerp(__ldg(lo + k), __ldg(lo + 9 + k), gf);
+  for (int k = 0; k < 9; ++k) p[k] = lerp(__ldg(lo + k), __ldg(lo + 9 + k), gf);
+  Column c;
+  c.mid = p[5];
+  c.r_up = p[2];
+  c.den_up = max_nan(__fsub_rn(p[5], p[2]), 1e-3f);
+  c.den_lo = max_nan(__fsub_rn(p[8], p[5]), 1e-3f);
+  c.x_up = p[0];
+  c.dx_up = __fsub_rn(p[3], p[0]);
+  c.y_up = p[1];
+  c.dy_up = __fsub_rn(p[4], p[1]);
+  c.x_lo = p[3];
+  c.dx_lo = __fsub_rn(p[6], p[3]);
+  c.y_lo = p[4];
+  c.dy_lo = __fsub_rn(p[7], p[4]);
   const float gm = __fdiv_rn(cf, stepm);
   const int mi = clampi(floor_int(gm), 0, kMask - 2);
   const float mf = clampf(__fsub_rn(gm, (float)mi), 0.f, 1.f);
   const float* ml = mask + mi * 2;
-  col.env[0] = lerp(__ldg(ml), __ldg(ml + 2), mf);
-  col.env[1] = lerp(__ldg(ml + 1), __ldg(ml + 3), mf);
+  c.top = __fsub_rn(lerp(__ldg(ml), __ldg(ml + 2), mf), 0.5f);
+  c.bottom = __fadd_rn(lerp(__ldg(ml + 1), __ldg(ml + 3), mf), 0.5f);
+  return c;
 }
 
-struct Line {
-  int off, w, h, stride;
-};
-
-__device__ __forceinline__ float pixel(const uint8_t* __restrict__ buf, long long last,
-                                       long long idx) {
-  idx = idx < 0 ? 0 : (idx > last ? last : idx);
-  return (float)__ldg(buf + idx);
+// the row lerp of one subsample, before the clamps: the piece the row
+// lies in and its one division (where rf or mid is NaN, the lower piece,
+// as torch.where takes it)
+__device__ __forceinline__ void source_point(const Column& c, float rf, float& x, float& y) {
+  const bool upper = rf < c.mid;
+  const float t = clampf(__fdiv_rn(__fsub_rn(rf, upper ? c.r_up : c.mid),
+                                   upper ? c.den_up : c.den_lo),
+                         0.f, 1.f);
+  x = __fadd_rn(upper ? c.x_up : c.x_lo, __fmul_rn(t, upper ? c.dx_up : c.dx_lo));
+  y = __fadd_rn(upper ? c.y_up : c.y_lo, __fmul_rn(t, upper ? c.dy_up : c.dy_lo));
 }
 
-// one subsample: the row lerp, the bilinear sample, the envelope test
-__device__ __forceinline__ float sample(const uint8_t* __restrict__ buf, long long last,
-                                        const Line& l, const Column& col, float rf) {
-  const float* p = col.p;
-  const float t_up = clampf(__fdiv_rn(__fsub_rn(rf, p[2]), max_nan(__fsub_rn(p[5], p[2]), 1e-3f)),
-                            0.f, 1.f);
-  const float t_lo = clampf(__fdiv_rn(__fsub_rn(rf, p[5]), max_nan(__fsub_rn(p[8], p[5]), 1e-3f)),
-                            0.f, 1.f);
-  const bool upper = rf < p[5];
-  float x = upper ? lerp(p[0], p[3], t_up) : lerp(p[3], p[6], t_lo);
-  float y = upper ? lerp(p[1], p[4], t_up) : lerp(p[4], p[7], t_lo);
-  x = clampf(x, 0.f, (float)(l.w - 1));
-  y = clampf(y, 0.f, (float)(l.h - 1));
-  const int ix = clampi(floor_int(x), 0, max(l.w - 2, 0));
-  const int iy = clampi(floor_int(y), 0, max(l.h - 2, 0));
-  const float fx = __fsub_rn(x, (float)ix);
-  const float fy = __fsub_rn(y, (float)iy);
-  const long long base = (long long)l.off + (long long)iy * l.stride + ix;
-  const long long ix1 = min(ix + 1, l.w - 1) - ix;
-  const long long iy1 = (long long)(min(iy + 1, l.h - 1) - iy) * l.stride;
-  const float v00 = pixel(buf, last, base);
-  const float v01 = pixel(buf, last, base + ix1);
-  const float v10 = pixel(buf, last, base + iy1);
-  const float v11 = pixel(buf, last, base + iy1 + ix1);
+__device__ __forceinline__ float bilinear(float v00, float v01, float v10, float v11, float fx,
+                                          float fy) {
   const float gx = __fsub_rn(1.f, fx);
   const float gy = __fsub_rn(1.f, fy);
   const float top = __fadd_rn(__fmul_rn(v00, gx), __fmul_rn(v01, fx));
   const float bottom = __fadd_rn(__fmul_rn(v10, gx), __fmul_rn(v11, fx));
-  const float val = __fadd_rn(__fmul_rn(top, gy), __fmul_rn(bottom, fy));
-  const bool inside =
-      rf >= __fsub_rn(col.env[0], 0.5f) && rf <= __fadd_rn(col.env[1], 0.5f);
-  return inside ? val : 0.f;
+  return __fadd_rn(__fmul_rn(top, gy), __fmul_rn(bottom, fy));
+}
+
+// a line whose window lies inside one buffer: `base` its first byte
+struct Direct {
+  const uint8_t* base;
+  int stride, wm2, hm2;
+  float wm1f, hm1f, wm2f, hm2f;
+};
+
+// floor(v) clamped to hi (as a float and as an int), for 0 <= v < 2^23 or
+// NaN (then hi: the sample is NaN whatever it reads)
+__device__ __forceinline__ float floor_to(float v, float hif, int hi, int& i) {
+  const float t = __fadd_rd(v, kTwo23);
+  i = (int)min((unsigned)(__float_as_int(t) - 0x4B000000), (unsigned)hi);
+  return fminf(__fsub_rn(t, kTwo23), hif);
+}
+
+__device__ __forceinline__ float fetch(const Direct& s, float x, float y) {
+  x = clampf(x, 0.f, s.wm1f);
+  y = clampf(y, 0.f, s.hm1f);
+  int ix, iy;
+  const float fx = __fsub_rn(x, floor_to(x, s.wm2f, s.wm2, ix));
+  const float fy = __fsub_rn(y, floor_to(y, s.hm2f, s.hm2, iy));
+  const uint8_t* p = s.base + (iy * s.stride + ix);
+  const uint8_t* q = p + s.stride;
+  return bilinear((float)__ldg(p), (float)__ldg(p + 1), (float)__ldg(q), (float)__ldg(q + 1), fx,
+                  fy);
+}
+
+// any other line: the plain version's indices into the two buffers taken
+// as one, as jnp indexing takes them (a negative one counted from the end
+// once, then each clamped into the buffer)
+struct Clamped {
+  const uint8_t* page;
+  const uint8_t* atlas;
+  long long page_len, last;
+  int off, w, h, stride;
+  float wm1f, hm1f;
+};
+
+__device__ __forceinline__ float pixel(const Clamped& s, long long idx) {
+  idx = idx < 0 ? idx + s.last + 1 : idx;
+  idx = idx < 0 ? 0 : (idx > s.last ? s.last : idx);
+  return (float)__ldg(idx < s.page_len ? s.page + idx : s.atlas + (idx - s.page_len));
+}
+
+__device__ __forceinline__ float fetch(const Clamped& s, float x, float y) {
+  x = clampf(x, 0.f, s.wm1f);
+  y = clampf(y, 0.f, s.hm1f);
+  const int ix = clampi(floor_int(x), 0, max(s.w - 2, 0));
+  const int iy = clampi(floor_int(y), 0, max(s.h - 2, 0));
+  const float fx = __fsub_rn(x, (float)ix);
+  const float fy = __fsub_rn(y, (float)iy);
+  const long long base = (long long)s.off + (long long)iy * s.stride + ix;
+  const long long ix1 = min(ix + 1, s.w - 1) - ix;
+  const long long iy1 = (long long)(min(iy + 1, s.h - 1) - iy) * s.stride;
+  return bilinear(pixel(s, base), pixel(s, base + ix1), pixel(s, base + iy1),
+                  pixel(s, base + iy1 + ix1), fx, fy);
+}
+
+// one subsample: 0 outside the envelope, else the sample at the row lerp's
+// point
+template <typename Src>
+__device__ __forceinline__ float subsample(const Src& s, const Column& c, float rf) {
+  if (!(rf >= c.top && rf <= c.bottom)) return 0.f;
+  float x, y;
+  source_point(c, rf, x, y);
+  return fetch(s, x, y);
+}
+
+template <typename T, int SS, typename Src>
+__device__ __forceinline__ void line_rows(const Src& s, const Column (&col)[SS], bool ss_on,
+                                          float ssf, T* __restrict__ o, int r_begin, int r_end,
+                                          int max_w) {
+  const long long step = (long long)kRowThreads * max_w;
+  o += (long long)r_begin * max_w;
+  for (int r = r_begin; r < r_end; r += kRowThreads, o += step) {
+    const float rowf = (float)r;
+    float acc = 0.f;
+    if (ss_on) {
+      float rf[SS];
+#pragma unroll
+      for (int sj = 0; sj < SS; ++sj) rf[sj] = __fadd_rn(rowf, __fmul_rn(ssf, sub_offset(sj, SS)));
+#pragma unroll
+      for (int si = 0; si < SS; ++si) {
+#pragma unroll
+        for (int sj = 0; sj < SS; ++sj) acc = __fadd_rn(acc, subsample(s, col[si], rf[sj]));
+      }
+    } else {
+      // every subsample is the pixel's centre (r + 0 * offset is r): one
+      // sample, added ss^2 times
+      const float v = subsample(s, col[0], rowf);
+#pragma unroll
+      for (int k = 0; k < SS * SS; ++k) acc = __fadd_rn(acc, v);
+    }
+    float mean;
+    if constexpr ((SS & (SS - 1)) == 0) {
+      mean = __fmul_rn(acc, 1.f / (SS * SS));
+    } else {
+      mean = __fdiv_rn(acc, (float)(SS * SS));
+    }
+    *o = from_float<T>(__fdiv_rn(__fsub_rn(255.f, mean), 255.f));
+  }
 }
 
 template <typename T, int SS>
 __global__ void __launch_bounds__(kTileC * kRowThreads)
-    extract_kernel(const uint8_t* __restrict__ buf, long long last, const float* __restrict__ grid,
+    extract_kernel(const uint8_t* __restrict__ page, const uint8_t* __restrict__ atlas,
+                   long long page_len, long long atlas_len, const float* __restrict__ grid,
                    const float* __restrict__ mask, const int* __restrict__ meta,
                    T* __restrict__ out, int height, int max_w) {
   const int i = blockIdx.z;
@@ -171,48 +306,49 @@ __global__ void __launch_bounds__(kTileC * kRowThreads)
   const int r_end = min((int)(blockIdx.y + 1) * kTileR, height);
   const int r_begin = blockIdx.y * kTileR + threadIdx.y;
   const int* m = meta + i * 8;
-  const int W_l = __ldg(m + 3), padl = __ldg(m + 5), ss_on = __ldg(m + 7);
+  const int W_l = __ldg(m + 3), padl = __ldg(m + 5), ss_flag = __ldg(m + 7);
   T* o = out + (long long)i * height * max_w + c;
   const float c_rel = (float)(c - padl);
   if (!(c_rel >= 0.f && c_rel < (float)W_l)) {
     for (int r = r_begin; r < r_end; r += kRowThreads) o[(long long)r * max_w] = from_float<T>(0.f);
     return;
   }
-  const Line l{__ldg(m), __ldg(m + 1), __ldg(m + 2), __ldg(m + 6)};
-  const float ssf = (float)ss_on;
+  const int off = __ldg(m), w = __ldg(m + 1), h = __ldg(m + 2), stride = __ldg(m + 6);
+  const float ssf = (float)ss_flag;
   const float span = (float)(max(W_l, 2) - 1);
   const float stepg = __fdiv_rn(span, (float)(kGrid - 1));
   const float stepm = __fdiv_rn(span, (float)(kMask - 1));
   const float* gl = grid + (long long)i * kGrid * 9;
   const float* ml = mask + (long long)i * kMask * 2;
   // where the flag is 0 every subsample is the pixel's centre
-  const int n_sub = ss_on ? SS : 1;
-  Column col[SS];
+  const int n_sub = ss_flag ? SS : 1;
+  Column col[SS] = {};
 #pragma unroll
   for (int si = 0; si < SS; ++si) {
     if (si < n_sub) {
-      column_map(gl, ml, __fadd_rn(c_rel, __fmul_rn(ssf, sub_offset(si, SS))), stepg, stepm,
-                 col[si]);
+      col[si] = column_map(gl, ml, __fadd_rn(c_rel, __fmul_rn(ssf, sub_offset(si, SS))), stepg,
+                           stepm);
     }
   }
-  for (int r = r_begin; r < r_end; r += kRowThreads) {
-    float acc = 0.f;
-    if (ss_on) {
-#pragma unroll
-      for (int si = 0; si < SS; ++si) {
-#pragma unroll
-        for (int sj = 0; sj < SS; ++sj) {
-          const float rf = __fadd_rn((float)r, __fmul_rn(ssf, sub_offset(sj, SS)));
-          acc = __fadd_rn(acc, sample(buf, last, l, col[si], rf));
-        }
-      }
-    } else {
-      const float v = sample(buf, last, l, col[0], (float)r);
-#pragma unroll
-      for (int k = 0; k < SS * SS; ++k) acc = __fadd_rn(acc, v);
+  const float wm1f = (float)(w - 1), hm1f = (float)(h - 1);
+  // the line's window: every byte a sample can read
+  const long long lo = off;
+  const long long hi = lo + (long long)(h - 1) * stride + (w - 1);
+  const uint8_t* base = nullptr;
+  if (w >= 2 && h >= 2 && w <= kMaxSide && h <= kMaxSide && stride >= 0) {
+    if (lo >= 0 && hi < page_len) {
+      base = page + lo;
+    } else if (lo >= page_len && hi < page_len + atlas_len) {
+      base = atlas + (lo - page_len);
     }
-    const float mean = __fdiv_rn(acc, (float)(SS * SS));
-    o[(long long)r * max_w] = from_float<T>(__fdiv_rn(__fsub_rn(255.f, mean), 255.f));
+  }
+  if (base != nullptr) {
+    const Direct s{base, stride, w - 2, h - 2, wm1f, hm1f, (float)(w - 2), (float)(h - 2)};
+    line_rows<T, SS>(s, col, ss_flag != 0, ssf, o, r_begin, r_end, max_w);
+  } else {
+    const Clamped s{page, atlas, page_len, page_len + atlas_len - 1, off, w, h, stride, wm1f,
+                    hm1f};
+    line_rows<T, SS>(s, col, ss_flag != 0, ssf, o, r_begin, r_end, max_w);
   }
 }
 
@@ -233,25 +369,33 @@ __global__ void __launch_bounds__(kGatherThreads)
   out[((long long)i * rows + row) * max_w + x] = from_float<T>(v);
 }
 
+struct ExtractArgs {
+  const uint8_t* page;
+  const uint8_t* atlas;
+  long long page_len, atlas_len;
+  const float* grid;
+  const float* mask;
+  const int* meta;
+  void* out;
+  int n, height, max_w;
+};
+
 template <typename T, int SS>
-cudaError_t launch_extract(const uint8_t* buf, long long last, const float* grid,
-                           const float* mask, const int* meta, void* out, int n, int height,
-                           int max_w, cudaStream_t stream) {
-  const dim3 blocks((max_w + kTileC - 1) / kTileC, (height + kTileR - 1) / kTileR, n);
+cudaError_t launch_extract(const ExtractArgs& a, cudaStream_t stream) {
+  const dim3 blocks((a.max_w + kTileC - 1) / kTileC, (a.height + kTileR - 1) / kTileR, a.n);
   extract_kernel<T, SS><<<blocks, dim3(kTileC, kRowThreads), 0, stream>>>(
-      buf, last, grid, mask, meta, static_cast<T*>(out), height, max_w);
+      a.page, a.atlas, a.page_len, a.atlas_len, a.grid, a.mask, a.meta, static_cast<T*>(a.out),
+      a.height, a.max_w);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t extract_ss(const uint8_t* buf, long long last, const float* grid, const float* mask,
-                       const int* meta, void* out, int n, int height, int max_w, int ss,
-                       cudaStream_t stream) {
+cudaError_t extract_ss(const ExtractArgs& a, int ss, cudaStream_t stream) {
   switch (ss) {
-    case 1: return launch_extract<T, 1>(buf, last, grid, mask, meta, out, n, height, max_w, stream);
-    case 2: return launch_extract<T, 2>(buf, last, grid, mask, meta, out, n, height, max_w, stream);
-    case 3: return launch_extract<T, 3>(buf, last, grid, mask, meta, out, n, height, max_w, stream);
-    case 4: return launch_extract<T, 4>(buf, last, grid, mask, meta, out, n, height, max_w, stream);
+    case 1: return launch_extract<T, 1>(a, stream);
+    case 2: return launch_extract<T, 2>(a, stream);
+    case 3: return launch_extract<T, 3>(a, stream);
+    case 4: return launch_extract<T, 4>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -267,28 +411,40 @@ cudaError_t launch_gather(const uint8_t* atlas, const int* aux, void* out, int n
 
 }  // namespace
 
-// buf: flat uint8 (buf_len > 0); grid (n, 129, 3, 3) fp32; mask (n, 65, 2)
-// fp32; meta (n, 8) int32; out (n, 1, height, max_w) of dtype 0 fp32 /
-// 1 bf16 / 2 fp16; ss 1 to 4. All contiguous on `device`.
-extern "C" int extract_forward(const void* buf, const void* grid, const void* mask,
-                               const void* meta, void* out, long long buf_len, int n, int height,
-                               int max_w, int ss, int dtype, int device, void* stream) {
-  if (buf_len <= 0 || n <= 0 || n > 65535 || height <= 0 || max_w <= 0 ||
+// page (page_len bytes), then atlas (atlas_len bytes): one flat uint8
+// buffer in two pieces, either may be empty (and null), not both, together
+// under 2^31 bytes; meta's offsets address the two as one. grid
+// (n, 129, 3, 3) fp32; mask (n, 65, 2) fp32; meta (n, 8) int32; out
+// (n, 1, height, max_w) of dtype 0 fp32 / 1 bf16 / 2 fp16; ss 1 to 4. All
+// contiguous on `device`.
+extern "C" int extract_forward(const void* page, const void* atlas, const void* grid,
+                               const void* mask, const void* meta, void* out, long long page_len,
+                               long long atlas_len, int n, int height, int max_w, int ss,
+                               int dtype, int device, void* stream) {
+  if (page_len < 0 || atlas_len < 0 || page_len + atlas_len <= 0 ||
+      page_len + atlas_len > kMaxBytes || (page_len > 0 && page == nullptr) ||
+      (atlas_len > 0 && atlas == nullptr) || n <= 0 || n > 65535 || height <= 0 || max_w <= 0 ||
       (height + kTileR - 1) / kTileR > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const uint8_t* b = static_cast<const uint8_t*>(buf);
-  const float* g = static_cast<const float*>(grid);
-  const float* m = static_cast<const float*>(mask);
-  const int* me = static_cast<const int*>(meta);
+  const ExtractArgs a{static_cast<const uint8_t*>(page),
+                      static_cast<const uint8_t*>(atlas),
+                      page_len,
+                      atlas_len,
+                      static_cast<const float*>(grid),
+                      static_cast<const float*>(mask),
+                      static_cast<const int*>(meta),
+                      out,
+                      n,
+                      height,
+                      max_w};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long last = buf_len - 1;
   switch (dtype) {
-    case 0: return (int)extract_ss<float>(b, last, g, m, me, out, n, height, max_w, ss, s);
-    case 1: return (int)extract_ss<__nv_bfloat16>(b, last, g, m, me, out, n, height, max_w, ss, s);
-    case 2: return (int)extract_ss<__half>(b, last, g, m, me, out, n, height, max_w, ss, s);
+    case 0: return (int)extract_ss<float>(a, ss, s);
+    case 1: return (int)extract_ss<__nv_bfloat16>(a, ss, s);
+    case 2: return (int)extract_ss<__half>(a, ss, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -590,10 +590,11 @@ def _extract_on_device(model: 'VGSLModel', lines: list, max_w: int, n: int, devi
         [entry[0] for entry in lines], max_w, n, config.padding, page_len, page_w, page_offs)
     telemetry.record_up(atlas.nbytes + grid.nbytes + mask.nbytes + meta.nbytes)
     atlas_d = torch.from_numpy(atlas).to(device)
-    buf_d = atlas_d if page_buf is None else torch.cat([page_buf, atlas_d])
     meta_d = torch.from_numpy(meta).to(device)
-    x = extract_batch(buf_d, torch.from_numpy(grid).to(device), torch.from_numpy(mask).to(device),
-                      meta_d, max_w, model.input[2], dtype=model._m_dtype)
+    # the kernel reads the resident page and the atlas where they lie
+    page_d, atlas_d = (atlas_d, None) if page_buf is None else (page_buf, atlas_d)
+    x = extract_batch(page_d, torch.from_numpy(grid).to(device), torch.from_numpy(mask).to(device),
+                      meta_d, max_w, model.input[2], dtype=model._m_dtype, atlas=atlas_d)
     return x, meta_d[:, 4].contiguous()
 
 

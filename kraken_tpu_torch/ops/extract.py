@@ -16,6 +16,8 @@ the JAX package's XLA programs:
 On a CUDA tensor each wrapper launches its hand-written kernel of
 ``csrc/extract.cu`` or raises; on a CPU tensor it runs its plain PyTorch
 version (:func:`extract_batch_reference`, :func:`packed_gather_reference`).
+The gather-warp reads the page and the batch's atlas where they lie, as
+one buffer (``atlas=``): the plain version takes their concatenation.
 Kernel and plain version round every step alike, so they agree bit for
 bit: both divide by 255 (and by the subsample count) as IEEE divisions,
 where torch divides a CUDA tensor by a Python number as a multiply by its
@@ -24,13 +26,15 @@ an FMA.
 """
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from kraken_tpu_torch.ops.build import DTYPE_CODES, raw_stream
 
-__all__ = ['extract_batch', 'extract_batch_reference', 'extract_margins', 'packed_gather',
-           'packed_gather_reference', 'divide', 'dequantize', 'M_GRID', 'M_MASK', 'MAX_SS']
+__all__ = ['extract_batch', 'extract_batch_reference', 'extract_margins', 'window_routes',
+           'packed_gather', 'packed_gather_reference', 'divide', 'dequantize', 'M_GRID', 'M_MASK',
+           'MAX_SS', 'MAX_BYTES']
 
 # warp-grid knot columns and mask-envelope knots a line (the JAX package's
 # inference/extraction.py constants)
@@ -38,6 +42,11 @@ M_GRID = 129
 M_MASK = 65
 # the largest supersampling factor the kernel is built for
 MAX_SS = 4
+# the most bytes the gather-warp's buffer may hold (page and atlas together):
+# the kernel addresses a line's bytes by 32-bit offsets
+MAX_BYTES = 2 ** 31 - 1
+# the widest and tallest strip the kernel's direct route takes
+_MAX_SIDE = 1 << 22
 
 
 def divide(x: torch.Tensor, d: float) -> torch.Tensor:
@@ -59,6 +68,13 @@ def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
     tensor)."""
     x = torch.maximum(x, lo) if isinstance(lo, torch.Tensor) else x.clamp(min=lo)
     return torch.minimum(x, hi) if isinstance(hi, torch.Tensor) else x.clamp(max=hi)
+
+
+def _index(idx: torch.Tensor, last: int) -> torch.Tensor:
+    """Buffer indices as jnp indexing takes them: a negative one counts from
+    the end once (numpy's rule), then every one is clamped into the buffer
+    (XLA's gather)."""
+    return torch.where(idx < 0, idx + (last + 1), idx).clamp(0, last)
 
 
 def _extract(buf, grid, mask, meta, max_w: int, height: int, ss: int, margins: bool):
@@ -112,8 +128,7 @@ def _extract(buf, grid, mask, meta, max_w: int, height: int, ss: int, margins: b
                             p[:, 1, 1][:, None, :] + t_lo * (p[:, 2, 1] - p[:, 1, 1])[:, None, :])
             # bilinear sample of the flat buffer: strips address w x h at
             # stride w, page-resident lines the same window at the page's
-            # row stride; indices clamped into the buffer as XLA's gather
-            # clamps them
+            # row stride; indices as jnp indexing takes them (_index)
             x = _clip(x, 0.0, (w - 1).float())
             y = _clip(y, 0.0, (h - 1).float())
             ix = _clip(torch.floor(x).long(), 0, (w - 2).clamp(min=0))
@@ -123,10 +138,10 @@ def _extract(buf, grid, mask, meta, max_w: int, height: int, ss: int, margins: b
             base = off + iy * stride + ix
             ix1 = torch.minimum(ix + 1, w - 1) - ix
             iy1 = (torch.minimum(iy + 1, h - 1) - iy) * stride
-            v00 = buf_f[base.clamp(0, last)]
-            v01 = buf_f[(base + ix1).clamp(0, last)]
-            v10 = buf_f[(base + iy1).clamp(0, last)]
-            v11 = buf_f[(base + iy1 + ix1).clamp(0, last)]
+            v00 = buf_f[_index(base, last)]
+            v01 = buf_f[_index(base + ix1, last)]
+            v10 = buf_f[_index(base + iy1, last)]
+            v11 = buf_f[_index(base + iy1 + ix1, last)]
             val = ((v00 * (1 - fx) + v01 * fx) * (1 - fy)
                    + (v10 * (1 - fx) + v11 * fx) * fy)
             # polygon envelope mask, with the host rasterizer's half pixel
@@ -225,7 +240,7 @@ def _kernels():
     from kraken_tpu_torch.ops.build import load_library
     lib = load_library('extract')
     warp = lib.extract_forward
-    warp.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 6 \
+    warp.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     warp.restype = ctypes.c_int
     gather = lib.packed_gather_forward
@@ -244,47 +259,89 @@ def _check_cuda(name: str, tensors: dict, device: torch.device) -> None:
             raise ValueError(f'{name}: {key} must be contiguous')
 
 
+def window_routes(meta, page_len: int, atlas_len: int) -> list:
+    """How the gather-warp kernel reads each line of a batch (the test it
+    makes once a thread, mirrored): 'page' or 'atlas' where the line's
+    window, every byte its samples can read (``[off, off + (h - 1) stride
+    + w - 1]``), lies inside that buffer (32-bit offsets from the window's
+    first byte, no clamp), else 'clamped' (the plain version's indices
+    into the two buffers taken as one, as jnp indexing takes them); 'pad'
+    for a row of no column (W_l 0: zeros, no sample). `meta` is the (n, 8)
+    int32 array of :func:`extract_batch_reference`."""
+    routes = []
+    for off, w, h, W_l, _, _, stride, _ in (tuple(int(v) for v in row) for row in meta):
+        if W_l <= 0:
+            routes.append('pad')
+            continue
+        hi = off + (h - 1) * stride + w - 1
+        direct = 2 <= w <= _MAX_SIDE and 2 <= h <= _MAX_SIDE and stride >= 0
+        if direct and 0 <= off and hi < page_len:
+            routes.append('page')
+        elif direct and page_len <= off and hi < page_len + atlas_len:
+            routes.append('atlas')
+        else:
+            routes.append('clamped')
+    return routes
+
+
 def extract_batch(buf: torch.Tensor, grid: torch.Tensor, mask: torch.Tensor,
                   meta: torch.Tensor, max_w: int, height: int, ss: int = 2,
-                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                  dtype: torch.dtype = torch.float32,
+                  atlas: Optional[torch.Tensor] = None) -> torch.Tensor:
     """
     The gather-warp of device line extraction (arguments and result of
     :func:`extract_batch_reference`).
 
-    On CPU tensors this is the plain version. On CUDA tensors it launches
-    the kernel of ``csrc/extract.cu`` on the current stream, writing the
+    With `atlas`, `buf` is the page and the batch's packed strips follow in
+    `atlas`: meta's offsets address the two as one buffer, an offset at or
+    past ``len(buf)`` reading the atlas, and the batch equals the plain
+    version's on ``torch.cat([buf, atlas])``. Either may be empty, not
+    both; together they hold at most MAX_BYTES.
+
+    On CPU tensors this is the plain version (on the concatenation). On
+    CUDA tensors it launches the kernel of ``csrc/extract.cu`` on the
+    current stream, which reads both buffers where they lie, writing the
     batch in `dtype` (float32, bfloat16 or float16), and adds one to
     ``extract_batch.launches``; it raises on a device, type, shape or
     layout the kernel does not take and when the launch is refused.
     """
     n = grid.shape[0]
     if grid.shape != (n, M_GRID, 3, 3) or mask.shape != (n, M_MASK, 2) \
-            or meta.shape != (n, 8) or buf.dim() != 1:
+            or meta.shape != (n, 8) or buf.dim() != 1 or (atlas is not None and atlas.dim() != 1):
         raise ValueError(f'extract_batch: grid {tuple(grid.shape)}, mask {tuple(mask.shape)}, '
-                         f'meta {tuple(meta.shape)}, buf {tuple(buf.shape)} do not fit '
-                         f'(n, {M_GRID}, 3, 3), (n, {M_MASK}, 2), (n, 8), (len,)')
+                         f'meta {tuple(meta.shape)}, buf {tuple(buf.shape)}, atlas '
+                         f'{None if atlas is None else tuple(atlas.shape)} do not fit '
+                         f'(n, {M_GRID}, 3, 3), (n, {M_MASK}, 2), (n, 8), (len,), (len,)')
     if not 1 <= ss <= MAX_SS or max_w < 1 or height < 1:
         raise ValueError(f'extract_batch: ss {ss} (1 to {MAX_SS}), max_w {max_w} and height '
                          f'{height} must be positive')
+    page_len, atlas_len = buf.numel(), 0 if atlas is None else atlas.numel()
+    if page_len + atlas_len == 0:
+        raise ValueError('extract_batch: the pixel buffer is empty')
+    if page_len + atlas_len > MAX_BYTES:
+        raise ValueError(f'extract_batch: the pixel buffer holds {page_len + atlas_len} bytes, '
+                         f'more than the {MAX_BYTES} the kernel addresses with 32-bit offsets')
     device = buf.device
     if device.type == 'cpu':
-        return extract_batch_reference(buf, grid, mask, meta, max_w, height, ss, dtype)
+        whole = buf if atlas is None else torch.cat([buf, atlas])
+        return extract_batch_reference(whole, grid, mask, meta, max_w, height, ss, dtype)
     if device.type != 'cuda':
         raise ValueError(f'extract_batch runs on cpu or cuda tensors, not {device}')
     code = DTYPE_CODES.get(dtype)
     if code is None:
         raise TypeError(f'extract_batch writes float32, bfloat16 or float16, not {dtype}')
-    _check_cuda('extract_batch', {'buf': (buf, torch.uint8), 'grid': (grid, torch.float32),
-                                  'mask': (mask, torch.float32), 'meta': (meta, torch.int32)},
-                device)
-    if buf.numel() == 0:
-        raise ValueError('extract_batch: the pixel buffer is empty')
+    tensors = {'buf': (buf, torch.uint8), 'grid': (grid, torch.float32),
+               'mask': (mask, torch.float32), 'meta': (meta, torch.int32)}
+    if atlas is not None:
+        tensors['atlas'] = (atlas, torch.uint8)
+    _check_cuda('extract_batch', tensors, device)
     out = torch.empty((n, 1, height, max_w), dtype=dtype, device=device)
     if n == 0:
         return out
-    err = _kernels()[0](buf.data_ptr(), grid.data_ptr(), mask.data_ptr(), meta.data_ptr(),
-                        out.data_ptr(), buf.numel(), n, height, max_w, ss, code, device.index,
-                        raw_stream(device.index))
+    err = _kernels()[0](buf.data_ptr() if page_len else None,
+                        atlas.data_ptr() if atlas_len else None, grid.data_ptr(),
+                        mask.data_ptr(), meta.data_ptr(), out.data_ptr(), page_len, atlas_len, n,
+                        height, max_w, ss, code, device.index, raw_stream(device.index))
     if err != 0:
         raise RuntimeError(f'extract_batch kernel launch failed: cudaError {err}')
     extract_batch.launches += 1

@@ -1417,24 +1417,28 @@ def test_extract_kernel_matches_plain(cuda_device):
     """The gather-warp of csrc/extract.cu against its plain version at
     chip_smoke.py's phase-25 cases (affine, mesh and Delaunay warps,
     downscaled with supersampling and upscaled without, page-resident lines
-    beside packed strips, host pass-throughs), fp32 and bf16; identity grids
-    bit for bit."""
+    beside packed strips, an atlas alone, host pass-throughs, the synthetic
+    clamp and threshold lines), at ss 1 to 4, fp32, bf16 and fp16, the
+    buffer whole and as page and atlas: bit for bit, one launch a call."""
     from kraken_tpu_torch.ops.extract import extract_batch, extract_batch_reference
-    cases = SMOKE.extract_cases()
-    assert {tag for tag, *_ in cases} == {'30-affine-mesh', '30-legacy', '120-affine-mesh',
-                                          '120-legacy', 'pass-through'}
-    for tag, buf, grid, mask, meta, max_w, height in cases:
-        args = [torch.from_numpy(a).to(cuda_device) for a in (buf, grid, mask, meta)]
-        for dtype in (torch.float32, torch.bfloat16):
-            before = extract_batch.launches
-            out = extract_batch(*args, max_w, height, dtype=dtype)
-            ref = extract_batch_reference(*args, max_w, height, dtype=dtype)
-            torch.cuda.synchronize()
-            assert extract_batch.launches == before + 1
-            assert out.shape == (len(meta), 1, height, max_w) and out.dtype == dtype
-            assert (out.float() - ref.float()).abs().max().item() <= SMOKE.EXTRACT_ATOL[dtype], tag
-            if tag == 'pass-through':
-                assert torch.equal(out, ref)
+    cases = SMOKE.extract_cases() + SMOKE.extract_edge_cases()
+    assert {tag for tag, *_ in cases} == {'30-affine-mesh', '30-atlas-only', '30-legacy',
+                                          '120-affine-mesh', '120-legacy', 'pass-through',
+                                          'clamps', 'thresholds'}
+    for tag, buf, grid, mask, meta, max_w, height, page_len in cases:
+        whole, page, atlas, *args = SMOKE.extract_inputs(buf, grid, mask, meta, page_len,
+                                                         cuda_device)
+        for ss in SMOKE.EXTRACT_SS:
+            ref = extract_batch_reference(whole, *args, max_w, height, ss)
+            for dtype in SMOKE.EXTRACT_DTYPES:
+                before = extract_batch.launches
+                outs = (extract_batch(whole, *args, max_w, height, ss, dtype),
+                        extract_batch(page, *args, max_w, height, ss, dtype, atlas=atlas))
+                torch.cuda.synchronize()
+                assert extract_batch.launches == before + 2
+                for out in outs:
+                    assert out.shape == (len(meta), 1, height, max_w) and out.dtype == dtype
+                    assert torch.equal(out, ref.to(dtype)), (tag, ss, dtype)
 
 
 @pytest.mark.cuda

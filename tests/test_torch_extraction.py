@@ -10,7 +10,8 @@ inputs made from the fixtures:
   ``build_extract_payload``) gives the JAX package's descriptors and
   payloads, array for array;
 - the plain gather-warp (``extract_batch_reference``) equals the JAX
-  ``extract_batch_jnp`` run op by op, bit for bit, and is within 1e-5 of
+  ``extract_batch_jnp`` run op by op, bit for bit (at ss 1 to 4; the page
+  and the atlas given apart as one buffer given whole), and is within 1e-5 of
   it jitted (as the JAX forward runs it) on at least 99.9% of the pixels,
   the rest within 1e-4 (XLA's FMA contraction of the coordinates) or near
   a threshold of an envelope test or a floor;
@@ -325,6 +326,117 @@ def test_extract_batch_on_cpu_is_the_reference(arabic):
         assert out.dtype == dtype
         assert torch.equal(out, extract_batch_reference(*args, max_w, 30, dtype=dtype))
     assert extract_batch.launches == launches
+
+
+def _jax_op_by_op(buf, grid, mask, meta, max_w, height, ss):
+    with jax.disable_jit():
+        return np.asarray(jax_extraction.extract_batch_jnp(
+            jnp.asarray(buf), jnp.asarray(grid), jnp.asarray(mask), jnp.asarray(meta), max_w,
+            height, ss))
+
+
+def _seeded_split_payload(seed: int, height: int = 24):
+    """A seeded page of 40 x 60 bytes and atlas of 3000 and a batch over
+    them: a line inside the page, a strip starting exactly at the page's
+    length, a strip whose window runs past the buffer's last byte (indices
+    clamped there), a page line whose window runs on into the atlas, a
+    line at a negative offset (indices counted from the end), a batch-pad
+    row; random warps, half of them supersampled, points beyond
+    their strips' edges. Returns (page, atlas, grid, mask, meta, max_w)."""
+    rng = np.random.default_rng(seed)
+    page = rng.integers(0, 256, (40, 60), dtype=np.uint8)
+    atlas = rng.integers(0, 256, 3000, dtype=np.uint8)
+    page_len, total = page.size, page.size + atlas.size
+    # (offset, w, h, stride) a line
+    windows = [(2 * 60 + 3, 50, 20, 60), (page_len, 40, 25, 40), (total - 300, 30, 20, 30),
+               (page_len - 3 * 60 + 5, 45, 6, 60), (-70, 30, 5, 60)]
+    n = len(windows) + 1
+    grid = np.zeros((n, 129, 3, 3), np.float32)
+    grid[:, :, 1, 2], grid[:, :, 2, 2] = 1.0, 2.0
+    mask = np.zeros((n, 65, 2), np.float32)
+    meta = np.zeros((n, 8), np.int32)
+    meta[:, 1:3], meta[:, 4], meta[:, 6] = 1, 64, 1
+    for i, (off, w, h, stride) in enumerate(windows):
+        W_l = int(rng.integers(20, 48))
+        x0, x1 = rng.uniform(-2, 3), rng.uniform(w - 3, w + 2)
+        grid[i, :, :, 0] = np.linspace(x0, x1, 129, dtype=np.float32)[:, None] \
+            + rng.uniform(-1, 1, (1, 3)).astype(np.float32)
+        grid[i, :, :, 1] = np.float32([rng.uniform(-2, 1), rng.uniform(h / 3, 2 * h / 3),
+                                       rng.uniform(h - 2, h + 1)])
+        grid[i, :, :, 2] = np.float32([0, rng.uniform(height / 3, 2 * height / 3), height - 1])
+        mask[i, :, 0] = rng.uniform(-1, 4, 65)
+        mask[i, :, 1] = rng.uniform(height - 5, height + 1, 65)
+        meta[i] = (off, w, h, W_l, W_l + 32, 16, stride, i % 2)
+    return page.reshape(-1), atlas, grid, mask, meta, 96
+
+
+@pytest.mark.parametrize('seed', range(3))
+def test_split_buffer_equals_whole_and_jax(seed):
+    """The page and the atlas given apart (as the engine passes them to the
+    kernel) give the batch of their concatenation, which equals the JAX
+    function op by op, bit for bit, on every kind of window: inside the
+    page, a strip at exactly the page's length, indices clamped at the
+    buffer's last byte, a page line running on into the atlas, negative
+    indices (jnp counts them from the end)."""
+    from kraken_tpu_torch.ops.extract import window_routes
+    page, atlas, grid, mask, meta, max_w = _seeded_split_payload(seed)
+    assert window_routes(meta, page.size, atlas.size) == ['page', 'atlas', 'clamped', 'clamped',
+                                                          'clamped', 'pad']
+    assert meta[1, 0] == page.size and meta[2, 0] + (meta[2, 2] - 1) * meta[2, 6] + meta[2, 1] \
+        > page.size + atlas.size
+    t = [torch.from_numpy(a) for a in (grid, mask, meta)]
+    split = extract_batch(torch.from_numpy(page), *t, max_w, 24, atlas=torch.from_numpy(atlas))
+    whole = np.concatenate([page, atlas])
+    assert torch.equal(split, extract_batch(torch.from_numpy(whole), *t, max_w, 24))
+    theirs = _jax_op_by_op(whole, grid, mask, meta, max_w, 24, 2)
+    assert split.numpy().tobytes() == theirs.tobytes()
+    # a buffer of the atlas alone: the page empty
+    shifted = meta.copy()
+    shifted[:5, 0] -= page.size
+    ours = extract_batch(torch.zeros(0, dtype=torch.uint8), *t[:2], torch.from_numpy(shifted),
+                         max_w, 24, atlas=torch.from_numpy(atlas))
+    assert ours.numpy().tobytes() == _jax_op_by_op(atlas, grid, mask, shifted, max_w, 24,
+                                                   2).tobytes()
+
+
+@pytest.mark.parametrize('ss', [1, 3, 4])
+def test_extract_reference_equals_jax_at_other_ss(arabic, ss):
+    """The plain gather-warp at the supersampling factors the path does not
+    use (1, and 3 whose mean is a division; 4) equals the JAX function op
+    by op, bit for bit: 3 of the Arabic page's lines (mesh, one from the
+    page), one with legacy polygons, a seeded split payload."""
+    im, _, seg = arabic
+    page = _gray(im)
+    descs = (_descs(extraction, page, seg.lines[4:7], 30)
+             + _descs(extraction, page, seg.lines[:1], 30, legacy=True))
+    offs = [d.page_off if i == 0 else -1 for i, d in enumerate(descs)]
+    max_w = 1024
+    atlas, grid, mask, meta = extraction.build_extract_payload(
+        descs, max_w, len(descs) + 1, 16, page.size, page.shape[1], offs)
+    buf = np.concatenate([page.reshape(-1), atlas])
+    ours = extract_batch(torch.from_numpy(page.reshape(-1)),
+                         *(torch.from_numpy(a) for a in (grid, mask, meta)), max_w, 30, ss=ss,
+                         atlas=torch.from_numpy(atlas)).numpy()
+    assert ours.tobytes() == _jax_op_by_op(buf, grid, mask, meta, max_w, 30, ss).tobytes()
+    page, atlas, grid, mask, meta, max_w = _seeded_split_payload(ss)
+    ours = extract_batch(torch.from_numpy(page), *(torch.from_numpy(a) for a in (grid, mask, meta)),
+                         max_w, 24, ss=ss, atlas=torch.from_numpy(atlas)).numpy()
+    assert ours.tobytes() == _jax_op_by_op(np.concatenate([page, atlas]), grid, mask, meta, max_w,
+                                           24, ss).tobytes()
+
+
+def test_extract_batch_refuses_a_buffer_past_32_bit_offsets():
+    """The kernel addresses a line's bytes by 32-bit offsets: a page and
+    atlas of more than MAX_BYTES together are refused on either device
+    (the tensors here are broadcast views, no memory behind them)."""
+    from kraken_tpu_torch.ops.extract import MAX_BYTES
+    grid, mask = torch.zeros((1, 129, 3, 3)), torch.zeros((1, 65, 2))
+    meta = torch.zeros((1, 8), dtype=torch.int32)
+    page = torch.zeros(1, dtype=torch.uint8).expand(MAX_BYTES - 7)
+    with pytest.raises(ValueError, match='32-bit'):
+        extract_batch(page, grid, mask, meta, 16, 8, atlas=torch.zeros(8, dtype=torch.uint8))
+    with pytest.raises(ValueError, match='empty'):
+        extract_batch(torch.zeros(0, dtype=torch.uint8), grid, mask, meta, 16, 8)
 
 
 @pytest.mark.parametrize('bad', ['grid', 'meta', 'ss'])
