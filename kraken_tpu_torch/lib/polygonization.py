@@ -423,24 +423,14 @@ def _prepare_line(line, neighbors: list, bounds: np.ndarray,
 
 
 def _carve_rows_device(patches: list, device='cuda') -> list:
-    """The seam DP of a list of (h, w) float32 patches on `device`: pads
-    them to a common shape (an +inf row above and below each, +inf fill,
-    as the JAX package pads them) and runs
-    :func:`kraken_tpu_torch.ops.seam.carve_seams_device` in one launch.
-    Returns each patch's seam rows with the pad offset removed."""
-    from kraken_tpu_torch.ops.seam import carve_seams_device
-    if not patches:
-        return []
-    padded = [np.pad(p, ((1, 1), (0, 0)), mode='constant',
-                     constant_values=np.inf) for p in patches]
-    h = max(p.shape[0] for p in padded)
-    w = max(p.shape[1] for p in padded)
-    batch = np.full((len(padded), h, w), np.inf, np.float32)
-    widths = np.array([p.shape[1] for p in padded], np.int32)
-    for i, p in enumerate(padded):
-        batch[i, :p.shape[0], :p.shape[1]] = p
-    rows = carve_seams_device(batch, widths, device)
-    return [rows[k, :widths[k]] - 1 for k in range(len(padded))]
+    """The seam DP of a list of (h, w) float32 patches on `device`, each
+    carved as it is with an +inf row above and below it (the host DP's
+    pad): :func:`kraken_tpu_torch.ops.seam.carve_seams_ragged` packs them
+    column-major into one buffer, with no common shape, and carves them in
+    one launch. Returns each patch's seam rows with the pad offset
+    removed."""
+    from kraken_tpu_torch.ops.seam import carve_seams_ragged
+    return carve_seams_ragged(patches, device)
 
 
 def polygonize_page(jobs: Sequence, im_feats: np.ndarray,
@@ -500,8 +490,9 @@ def _polygonize_batched(baselines, prepare_one, raise_on_error: bool, device='cu
     """
     Batched polygonization: prepares every line's two seam patches on the
     host, carves all seams in one launch of the seam kernel on `device`
-    (``ops/seam.py``), then completes each polygon. Row and width +inf
-    padding keeps the results those of the per-line host DP.
+    (:func:`_carve_rows_device`), then completes each polygon. Each patch
+    is carved over its own rows and columns, with the host DP's +inf pad
+    rows, so the results are those of the per-line host DP.
     """
     preps = []
     for idx, line in enumerate(baselines):

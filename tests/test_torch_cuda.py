@@ -1538,17 +1538,65 @@ def test_segmask_kernels_match_plain(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize('case', range(len(SMOKE.seam_cases())))
 def test_seam_kernel_matches_plain_and_host_dp(cuda_device, case):
-    """The seam kernel's backtrack and start column against its plain
-    version, and the device carver's rows against the plain version on the
-    CPU and the native host DP, at chip_smoke.py's phase-26 cases (ties,
-    overflow, masked columns, width-1 patches, 1100 and 7000 rows)."""
-    from kraken_tpu_torch.ops.seam import seam_forward
+    """The seam kernel against its plain versions at chip_smoke.py's
+    phase-26 cases (ties, constants, overflow, masks, width-1 patches,
+    1-3 rows, the group route's edges, 1100, 1919 and 7000 rows): the
+    carve's rows on the group and the block route, the polygonizer's call,
+    the padded API, the forward mode's backtrack and start column; the rows
+    also against the native host DP."""
+    from kraken_tpu_torch.ops.seam import seam_carve, seam_forward
     tag, patches, host_dp = SMOKE.seam_cases()[case]
-    before = seam_forward.launches
+    before = (seam_carve.launches, seam_forward.launches)
     row = SMOKE.check_seam(tag, patches, cuda_device, host_dp)
-    assert row['backtrack_equal'] and row['cost_column_equal'] and row['rows_equal'], row
-    # the check launches the kernel twice (seam_forward, then the carver)
-    assert seam_forward.launches == before + 2
+    assert row['equal'], row
+    # the check carves four times (two routes, the polygonizer's call, the
+    # padded API) and runs the forward mode once where a patch is wider
+    # than one column
+    wide = max(p.shape[1] for p in patches) > 1
+    assert (seam_carve.launches - before[0], seam_forward.launches - before[1]) == (4, int(wide))
+
+
+@pytest.mark.cuda
+def test_seam_carve_launches_once_a_carve(cuda_device):
+    """One launch a carve, whatever the batch (group and block route
+    patches, width-1 patches, codes in shared and in global memory)."""
+    from kraken_tpu_torch.ops import seam
+    rng = np.random.RandomState(4)
+    patches = [rng.rand(h, w).astype(np.float32)
+               for h, w in ((30, 300), (300, 500), (2100, 9), (5, 1), (100, 1200))]
+    packed = seam.pack_patches(patches, pin=True)
+    assert packed.n_block == 1 and packed.code_bytes > 0
+    before = seam.seam_carve.launches
+    got = seam.seam_carve(packed, cuda_device)
+    assert seam.seam_carve.launches == before + 1
+    np.testing.assert_array_equal(got, seam.seam_carve(seam.pack_patches(patches), 'cpu'))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('field, value', [('data', 3), ('height', 2), ('width', 1), ('out', 1),
+                                          ('code', 8), ('index', 99), ('map', 2), ('group', 0x12)])
+def test_seam_carve_refuses_malformed_descriptors(cuda_device, field, value):
+    """A malformed ragged descriptor (offsets, heights, widths, groups)
+    raises ValueError and launches nothing."""
+    from kraken_tpu_torch.ops import seam
+    rng = np.random.RandomState(0)
+    patches = [rng.rand(h, w).astype(np.float32) for h, w in ((300, 20), (30, 5), (2000, 3))]
+    packed = seam.pack_patches(patches, pin=True)
+    desc = packed.descriptors()
+    slot = 0 if field == 'code' else packed.n_block + 1
+    desc[slot, ('data', 'height', 'width', 'out', 'code', 'index', 'map', 'group').index(field)] \
+        += value
+    before = seam.seam_carve.launches
+    with pytest.raises(ValueError):
+        seam.seam_carve(packed, cuda_device)
+    assert seam.seam_carve.launches == before
+
+
+@pytest.mark.cuda
+def test_seam_geometry_matches_the_plan(cuda_device):
+    from kraken_tpu_torch.ops import seam
+    assert seam.geometry() == (seam.WARPS, seam.STAGES, seam.GROUP_ROWS, seam.REGION_HEAD,
+                               seam.RING)
 
 
 @pytest.mark.cuda
@@ -1595,13 +1643,13 @@ def test_segmentation_routes_on_the_card_equal_the_cpu(cuda_device, route):
     launched once a page on the card."""
     from PIL import Image
     from kraken_tpu_torch.configs import SegmentationInferenceConfig
-    from kraken_tpu_torch.ops.seam import seam_forward
+    from kraken_tpu_torch.ops.seam import seam_carve
     from kraken_tpu_torch.ops.segmask import maxpool20, pack_masks, quantize_u8
     from kraken_tpu_torch.tasks import SegmentationTaskModel
     task = SegmentationTaskModel.load_model()
     im = Image.open(RESOURCES / '170025120000003,0074.jpg')
     float_seg = SMOKE.seg_record(task.predict(im, SegmentationInferenceConfig()))
-    kernels = (maxpool20, pack_masks, quantize_u8, seam_forward)
+    kernels = (maxpool20, pack_masks, quantize_u8, seam_carve)
     records, launched, sent = {}, {}, {}
     for device in ('cuda', 'cpu'):
         before = [k.launches for k in kernels]
