@@ -63,11 +63,33 @@
 //    Replaces the gather of kraken_tpu/inference/recognition.py:158
 //    fwd_packed: out[i, c, r, x] = atlas[c, r, off[i] + x] / 255 for
 //    x < wid[i] (the index clamped into the atlas), else 0, in the model's
-//    type. The division is an IEEE division, as the plain version and the
-//    'uint8' route divide, so all three agree bit for bit. Bound: bytes
-//    (the lines' bytes read once, the batch written once). A thread an
-//    output element, a block 256 of a row's columns (coalesced stores);
-//    grid: column blocks x (c * h) rows x lines.
+//    type.
+//
+//    What bounds it: bytes. The lines' bytes are read once and the batch
+//    written once, 4 or 2 bytes an element against 1 read: the stores are
+//    the time (13.4 MB at the pipeline's widest fp32 batch, 4 us at the
+//    card's 3.35 TB/s).
+//
+//    Design: a block takes one line and a group of rows (grid: row groups
+//    x lines) and reads the line's offset and width once. A thread takes
+//    runs of kRunBytes / sizeof(T) consecutive columns (8 fp32, 16 bf16 or
+//    fp16) and writes each as two 16-byte stores; the runs of a row start
+//    where its output is 16-byte aligned, and the columns before the first
+//    run and after the last whole one (a row whose start is not aligned, a
+//    max_w that is not a multiple of the run) take scalar stores in the
+//    same kernel. A run wholly past the line's width, and every run of a
+//    batch-pad line, stores zeros without a load. A run that lies inside
+//    the atlas loads the aligned 32-bit words that hold its bytes (the
+//    offset is arbitrary) and shifts them into place with
+//    __funnelshift_r; the bytes past the width are masked to 0; a run that
+//    reaches outside the atlas takes the plain version's clamped index and
+//    a scalar store a column. A byte b becomes 2^23 + b by __byte_perm into
+//    the exponent of 2^23, minus 2^23, exact; its quotient is b * r with
+//    r = 1/255 rounded to fp32, then one correction q + r (b - 255 q) in
+//    two FMAs: correctly rounded, so equal to the IEEE division by 255 that
+//    the plain version and the 'uint8' route take, for every one of the 256
+//    bytes (a CPU test holds the three steps to exact rationals). All three
+//    agree bit for bit.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -82,6 +104,10 @@ constexpr int kRowThreads = 8;      // warps a block
 constexpr int kRowsPerThread = 8;
 constexpr int kTileR = kRowThreads * kRowsPerThread;  // rows a block
 constexpr int kGatherThreads = 256;
+constexpr int kRunBytes = 32;       // output bytes of a gather thread's run (16-byte stores)
+constexpr int kGatherItems = 1024;  // runs a gather block aims at (4 a thread)
+constexpr int kGatherMinBlocks = 264;  // blocks a launch keeps, rows allowing: 2 an SM
+constexpr float kInv255 = 0x1.010102p-8f;  // 1/255 rounded to fp32
 // the widest and tallest strip the direct route takes: its coordinates stay
 // below 2^23, where the round-down add of 2^23 floors exactly
 constexpr int kMaxSide = 1 << 22;
@@ -352,21 +378,116 @@ __global__ void __launch_bounds__(kTileC * kRowThreads)
   }
 }
 
+// b / 255 correctly rounded for byte k of `word`: the byte as 2^23 + b
+// minus 2^23 (exact), b * r, then q + r (b - 255 q) by two FMAs
+__device__ __forceinline__ float byte_quotient(uint32_t word, int k) {
+  const float b = __fsub_rn(__uint_as_float(__byte_perm(word, 0x4B000000u, 0x7440u | k)), kTwo23);
+  const float q = __fmul_rn(b, kInv255);
+  return __fmaf_rn(__fmaf_rn(-q, 255.f, b), kInv255, q);
+}
+
+// the quotients of two adjacent bytes of `word` packed as two T in 32 bits
+template <typename T>
+__device__ __forceinline__ uint32_t pack_pair(uint32_t word, int k);
+template <>
+__device__ __forceinline__ uint32_t pack_pair<__nv_bfloat16>(uint32_t word, int k) {
+  const __nv_bfloat162 v =
+      __floats2bfloat162_rn(byte_quotient(word, k), byte_quotient(word, k + 1));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack_pair<__half>(uint32_t word, int k) {
+  const __half2 v = __floats2half2_rn(byte_quotient(word, k), byte_quotient(word, k + 1));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// a whole run's quotients, its bytes in `w` (byte k of the run at bits
+// 8 (k % 4) of w[k / 4]), as 16-byte stores at the aligned `dst`
+template <typename T, int kWords>
+__device__ __forceinline__ void store_run(T* dst, const uint32_t (&w)[kWords]) {
+  uint4 v[kRunBytes / 16];
+  uint32_t* o = reinterpret_cast<uint32_t*>(v);
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) o[4 * j + k] = __float_as_uint(byte_quotient(w[j], k));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) {
+      o[2 * j] = pack_pair<T>(w[j], 0);
+      o[2 * j + 1] = pack_pair<T>(w[j], 2);
+    }
+  }
+  uint4* d = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int m = 0; m < kRunBytes / 16; ++m) d[m] = v[m];
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kGatherThreads)
     packed_gather_kernel(const uint8_t* __restrict__ atlas, const int* __restrict__ aux,
-                         T* __restrict__ out, int n, int rows, int atlas_w, int max_w) {
-  const int x = blockIdx.x * kGatherThreads + threadIdx.x;
-  if (x >= max_w) return;
-  const int row = blockIdx.y;
-  const int i = blockIdx.z;
-  float v = 0.f;
-  if (x < __ldg(aux + n + i)) {
-    long long idx = (long long)__ldg(aux + i) + x;
-    idx = idx < 0 ? 0 : (idx >= atlas_w ? atlas_w - 1 : idx);
-    v = __fdiv_rn((float)__ldg(atlas + (long long)row * atlas_w + idx), 255.f);
+                         T* __restrict__ out, int n, int rows, int atlas_w, int max_w,
+                         int rows_per_block, int runs) {
+  constexpr int kRun = kRunBytes / sizeof(T);  // columns a run
+  constexpr int kWords = kRun / 4;             // 32-bit words of a run's bytes
+  const int i = blockIdx.y;
+  const int off = __ldg(aux + i), wid = __ldg(aux + n + i);
+  const int row0 = blockIdx.x * rows_per_block;
+  const int items = min(rows_per_block, rows - row0) * runs;
+  for (int t = threadIdx.x; t < items; t += kGatherThreads) {
+    const int row = row0 + t / runs;
+    const int j = t - (t / runs) * runs;
+    T* const dst = out + ((long long)i * rows + row) * max_w;
+    const uint8_t* const src = atlas + (long long)row * atlas_w;
+    // the row's first run starts at its first 16-byte aligned column
+    const int head =
+        (int)((16u - (reinterpret_cast<uintptr_t>(dst) & 15u)) & 15u) / (int)sizeof(T);
+    const int x0 = (head > 0 ? head - kRun : 0) + j * kRun;
+    const bool whole = x0 >= 0 && x0 + kRun <= max_w;
+    if (whole && x0 >= wid) {
+      uint4* d = reinterpret_cast<uint4*>(dst + x0);
+#pragma unroll
+      for (int m = 0; m < kRunBytes / 16; ++m) d[m] = make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
+    if (whole) {
+      const int valid = min(kRun, wid - x0);
+      const long long pos = (long long)off + x0;
+      if (pos >= 0 && pos + valid <= atlas_w) {
+        const uintptr_t addr = reinterpret_cast<uintptr_t>(src + pos);
+        const uint32_t* wp = reinterpret_cast<const uint32_t*>(addr & ~(uintptr_t)3);
+        const int s = (int)(addr & 3);
+        // only the words that hold a byte of the run: none past the atlas
+        uint32_t raw[kWords + 1], w[kWords];
+#pragma unroll
+        for (int m = 0; m <= kWords; ++m) raw[m] = 4 * m < s + valid ? __ldg(wp + m) : 0u;
+#pragma unroll
+        for (int m = 0; m < kWords; ++m) {
+          w[m] = __funnelshift_r(raw[m], raw[m + 1], 8 * s);
+          // the bytes past the width read as 0
+          const int keep = valid - 4 * m;
+          if (keep < 4) w[m] &= keep <= 0 ? 0u : (1u << (8 * keep)) - 1u;
+        }
+        store_run<T, kWords>(dst + x0, w);
+        continue;
+      }
+    }
+    // a row's ragged head or tail, or a run the plain version's clamp
+    // reaches: scalar stores
+    for (int k = 0; k < kRun; ++k) {
+      const int x = x0 + k;
+      if (x < 0 || x >= max_w) continue;
+      float v = 0.f;
+      if (x < wid) {
+        long long idx = (long long)off + x;
+        idx = idx < 0 ? 0 : (idx >= atlas_w ? atlas_w - 1 : idx);
+        v = byte_quotient(__ldg(src + idx), 0);
+      }
+      dst[x] = from_float<T>(v);
+    }
   }
-  out[((long long)i * rows + row) * max_w + x] = from_float<T>(v);
 }
 
 struct ExtractArgs {
@@ -400,12 +521,24 @@ cudaError_t extract_ss(const ExtractArgs& a, int ss, cudaStream_t stream) {
   }
 }
 
+// runs a row (one more where rows do not all start 16-byte aligned) and
+// rows a block: about kGatherItems runs, fewer rows while the launch would
+// have under kGatherMinBlocks blocks
 template <typename T>
 cudaError_t launch_gather(const uint8_t* atlas, const int* aux, void* out, int n, int rows,
                           int atlas_w, int max_w, cudaStream_t stream) {
-  const dim3 blocks((max_w + kGatherThreads - 1) / kGatherThreads, rows, n);
+  constexpr int kRun = kRunBytes / (int)sizeof(T);
+  const bool aligned = (reinterpret_cast<uintptr_t>(out) & 15u) == 0 &&
+                       ((long long)max_w * (long long)sizeof(T)) % 16 == 0;
+  const int runs = (max_w + kRun - 1) / kRun + (aligned ? 0 : 1);
+  int rows_per_block = max(1, min(rows, kGatherItems / runs));
+  while (rows_per_block > 1 &&
+         (long long)n * ((rows + rows_per_block - 1) / rows_per_block) < kGatherMinBlocks) {
+    rows_per_block /= 2;
+  }
+  const dim3 blocks((rows + rows_per_block - 1) / rows_per_block, n);
   packed_gather_kernel<T><<<blocks, kGatherThreads, 0, stream>>>(
-      atlas, aux, static_cast<T*>(out), n, rows, atlas_w, max_w);
+      atlas, aux, static_cast<T*>(out), n, rows, atlas_w, max_w, rows_per_block, runs);
   return cudaGetLastError();
 }
 

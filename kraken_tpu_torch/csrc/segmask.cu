@@ -9,12 +9,35 @@
 //    x-10..x+9, an index outside the map reflected about its edges with the
 //    edge repeated. The reflection is index arithmetic, periodic over 2n,
 //    so it holds for maps shorter or narrower than the pad (np.pad repeats
-//    the reflection there). A block takes a 32 x 32 output tile: it stages
-//    the 51 x 51 reflected input in shared memory, takes the 20-row max of
-//    each of its 51 columns into a second buffer, then the 20-column max of
-//    that. Max is exact, so the kernel equals its plain version (and the JAX
-//    program) bit for bit whatever the order; a NaN propagates, as XLA's
-//    max and torch.amax propagate it.
+//    the reflection there).
+//
+//    What bounds it: bytes, the map read once and the filtered map written
+//    once (0.0107 ms at the full-size spec's two 1800 x 1245 maps).
+//
+//    Design: the van Herk / Gil-Werman running max, so a pixel's work does
+//    not grow with the window. An axis cut into segments of 20 gives each
+//    window of 20 as one segment's suffix max and the next one's prefix
+//    max: about three max a pixel an axis. A block of 160 threads takes an
+//    output tile of 141 columns and 20 rows (one segment). Vertical pass, in
+//    registers: a thread takes one of the tile's 160 input columns (the
+//    141 and the 19 of the window's halo) and issues the loads of its 39
+//    rows at once (one memory latency; coalesced across the warp, each
+//    pixel loaded once): the suffix maxima of the first 20, then the
+//    running prefix of the next 19, each output row the max of one of each,
+//    into shared memory. Horizontal pass: a thread takes one of the 20
+//    staged rows' 8 segments of 20 columns and writes their prefix and
+//    suffix maxima beside the row (a staged row on its own bank: no
+//    conflicts); then a thread takes an output column down the 20 rows,
+//    each output the max of one suffix and one prefix, each row's store
+//    coalesced. The reflection is computed only in tiles within 10 pixels
+//    of an edge: there the strip's 39 row indices are one table in shared
+//    memory, and each thread reflects its one column once; an interior
+//    tile indexes directly. A NaN propagates (a compare and a select: the
+//    NaN is kept once seen, as XLA's max and torch.amax keep it). Max is
+//    exact, so the kernel equals its plain version (and the JAX program)
+//    bit for bit, but for which zero a tie of -0.0 and +0.0 gives: the
+//    order of the max differs (the plain version's and XLA's differ too),
+//    so the two are compared as values there.
 //
 // 2. pack_masks_kernel: the decision masks of heatmap_precision='packbits',
 //    bit-packed. Replaces kraken_tpu/inference/segmentation.py:173-185 (the
@@ -35,19 +58,24 @@
 //    kraken_tpu/inference/segmentation.py:196. A thread four elements.
 //
 // What bounds them on the H100: bytes. Each reads its inputs once (the max
-// filter's tiles re-read a 19-pixel halo from L2) and writes its output
-// once; a pixel costs a few dozen comparisons at most.
+// filter's tiles re-read their halo, 19 rows and 19 columns, from L2) and
+// writes its output once; a pixel costs a few comparisons.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 32;                      // output tile side of the max filter
-constexpr int kWin = 20;                       // window side
-constexpr int kBefore = 10;                    // scipy's origin-0 anchor: 10 before, 9 after
-constexpr int kIn = kTile + kWin - 1;          // staged side (51)
-constexpr int kPoolThreadsX = 32, kPoolThreadsY = 8;
+constexpr int kWin = 20;                          // window side, and the segment's
+constexpr int kBefore = 10;                       // scipy's origin-0 anchor: 10 before, 9 after
+constexpr int kPoolThreads = 160;                 // a max-filter block: its input columns
+constexpr int kPoolOut = kPoolThreads - kWin + 1;  // output columns of a tile (141)
+constexpr int kStrip = kWin;                      // output rows of a tile: one segment
+constexpr int kSegs = kPoolThreads / kWin;        // segments of a staged row (8)
+constexpr int kPitch = kPoolThreads + 1;          // staged row pitch: odd, rows on distinct banks
+constexpr int kStripRows = kStrip + kWin - 1;     // input rows of a tile (39)
+static_assert(kPoolThreads % kWin == 0 && kStrip * kSegs == kPoolThreads,
+              "a horizontal segment a thread");
 constexpr int kPackThreads = 256;
 constexpr int kQuantThreads = 256;
 constexpr int kMaxRegions = 64;
@@ -69,38 +97,83 @@ __device__ __forceinline__ float nan_max(float m, float v) {
   return (v > m || isnan(v)) ? v : m;
 }
 
-__global__ void __launch_bounds__(kPoolThreadsX * kPoolThreadsY)
+// The vertical pass of a thread's column `col`: its 39 input rows (row p
+// of the tile at y_top + p, or s_rows[p] in a strip by an edge), each
+// loaded once; output row k of the strip is the max of rows k..k+19, the
+// suffix max of the first segment at k and the prefix max of the second
+// up to k - 1.
+template <bool kEdgeRows>
+__device__ __forceinline__ void pool_column(const float* __restrict__ src, int W, int col,
+                                            int y_top, const int* s_rows,
+                                            float (*s_v)[kPitch], int u) {
+  const auto at = [&](int p) {
+    const int r = kEdgeRows ? s_rows[p] : y_top + p;
+    return __ldg(src + (long long)r * W + col);
+  };
+  // every load issued before the first max: one memory latency a column
+  float h[kWin], a[kWin - 1];
+#pragma unroll
+  for (int k = 0; k < kWin; ++k) h[k] = at(k);
+#pragma unroll
+  for (int k = 0; k < kWin - 1; ++k) a[k] = at(kWin + k);
+#pragma unroll
+  for (int k = kWin - 2; k >= 0; --k) h[k] = nan_max(h[k + 1], h[k]);
+  s_v[0][u] = h[0];
+  float g = a[0];
+#pragma unroll
+  for (int k = 1; k < kWin; ++k) {
+    s_v[k][u] = nan_max(h[k], g);
+    if (k < kWin - 1) g = nan_max(g, a[k]);
+  }
+}
+
+__global__ void __launch_bounds__(kPoolThreads)
     maxpool20_kernel(const float* __restrict__ x, float* __restrict__ y, int H, int W) {
-  __shared__ float s_in[kIn][kIn + 1];
-  __shared__ float s_col[kTile][kIn + 1];
-  const int x0 = blockIdx.x * kTile, y0 = blockIdx.y * kTile;
+  __shared__ float s_v[kStrip][kPitch];  // vertical maxima, then their segments' suffix maxima
+  __shared__ float s_g[kStrip][kPitch];  // the segments' prefix maxima
+  __shared__ int s_rows[kStripRows];
+  const int x0 = blockIdx.x * kPoolOut, y0 = blockIdx.y * kStrip;
   const long long plane = (long long)blockIdx.z * H * W;
   const float* src = x + plane;
-  const int tid = threadIdx.y * kPoolThreadsX + threadIdx.x;
-  const int nthreads = kPoolThreadsX * kPoolThreadsY;
-  for (int i = tid; i < kIn * kIn; i += nthreads) {
-    const int r = i / kIn, c = i - r * kIn;
-    const int gy = reflect(y0 - kBefore + r, H), gx = reflect(x0 - kBefore + c, W);
-    s_in[r][c] = __ldg(src + (long long)gy * W + gx);
+  const int u = threadIdx.x;
+  const int y_top = y0 - kBefore, x_left = x0 - kBefore;
+  const int gx = x_left + u;
+  const int col = x_left < 0 || x_left + kPoolThreads > W ? reflect(gx, W) : gx;
+  if (y_top < 0 || y_top + kStripRows > H) {
+    if (u < kStripRows) s_rows[u] = reflect(y_top + u, H);
+    __syncthreads();
+    pool_column<true>(src, W, col, y_top, s_rows, s_v, u);
+  } else {
+    pool_column<false>(src, W, col, y_top, s_rows, s_v, u);
   }
   __syncthreads();
-  for (int i = tid; i < kTile * kIn; i += nthreads) {
-    const int r = i / kIn, c = i - r * kIn;
-    float m = -INFINITY;
+  {
+    const int r = u % kStrip, c0 = (u / kStrip) * kWin;
+    float v[kWin];
 #pragma unroll
-    for (int k = 0; k < kWin; ++k) m = nan_max(m, s_in[r + k][c]);
-    s_col[r][c] = m;
+    for (int j = 0; j < kWin; ++j) v[j] = s_v[r][c0 + j];
+    float m = v[0];
+    s_g[r][c0] = m;
+#pragma unroll
+    for (int j = 1; j < kWin; ++j) {
+      m = nan_max(m, v[j]);
+      s_g[r][c0 + j] = m;
+    }
+    m = v[kWin - 1];
+#pragma unroll
+    for (int j = kWin - 2; j >= 0; --j) {
+      m = nan_max(m, v[j]);
+      s_v[r][c0 + j] = m;
+    }
   }
   __syncthreads();
-  const int c = threadIdx.x, gx = x0 + c;
-  if (gx >= W) return;
-  for (int r = threadIdx.y; r < kTile; r += kPoolThreadsY) {
-    const int gy = y0 + r;
-    if (gy >= H) break;
-    float m = -INFINITY;
+  // a thread an output column down the strip: each row's store coalesced
+  if (u < kPoolOut && x0 + u < W) {
+    float* dst = y + plane + (long long)y0 * W + x0 + u;
 #pragma unroll
-    for (int k = 0; k < kWin; ++k) m = nan_max(m, s_col[r][c + k]);
-    y[plane + (long long)gy * W + gx] = m;
+    for (int r = 0; r < kStrip; ++r) {
+      if (y0 + r < H) dst[(long long)r * W] = nan_max(s_v[r][u], s_g[r][u + kWin - 1]);
+    }
   }
 }
 
@@ -176,9 +249,9 @@ extern "C" int maxpool20_forward(const void* x, void* y, int M, int H, int W, in
   if (M <= 0 || M > 65535 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 blocks((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, M);
+  const dim3 blocks((W + kPoolOut - 1) / kPoolOut, (H + kStrip - 1) / kStrip, M);
   if (blocks.y > 65535) return (int)cudaErrorInvalidValue;
-  maxpool20_kernel<<<blocks, dim3(kPoolThreadsX, kPoolThreadsY), 0,
+  maxpool20_kernel<<<blocks, kPoolThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(x),
                                                           static_cast<float*>(y), H, W);
   return (int)cudaGetLastError();

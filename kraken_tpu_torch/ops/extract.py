@@ -19,10 +19,12 @@ version (:func:`extract_batch_reference`, :func:`packed_gather_reference`).
 The gather-warp reads the page and the batch's atlas where they lie, as
 one buffer (``atlas=``): the plain version takes their concatenation.
 Kernel and plain version round every step alike, so they agree bit for
-bit: both divide by 255 (and by the subsample count) as IEEE divisions,
+bit: both take the IEEE quotient by 255 (and by the subsample count),
 where torch divides a CUDA tensor by a Python number as a multiply by its
-fp32 reciprocal (:func:`divide`), and the kernel contracts no product into
-an FMA.
+fp32 reciprocal (:func:`divide`); the gather-warp's kernel contracts no
+product into an FMA, and the packed gather's takes the quotient of a byte
+as a multiply by that reciprocal and one FMA correction, correctly
+rounded for all 256 bytes (``tests/test_torch_packed_plan.py``).
 """
 import ctypes
 import functools

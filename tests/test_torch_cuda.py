@@ -1456,6 +1456,24 @@ def test_packed_gather_matches_plain_and_uint8_route(cuda_device, case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('max_w', SMOKE.PACKED_EDGE_WIDTHS)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
+def test_packed_gather_edges_match_plain(cuda_device, max_w, dtype):
+    """chip_smoke.py's edge batches: line offsets of every residue mod 16,
+    widths 0-17, lines as wide as max_w and wider, clamped offsets, pad
+    lines, max_w on the ladder and off it (rows that start unaligned and
+    end ragged): bit for bit, one launch a call."""
+    from kraken_tpu_torch.ops.extract import packed_gather
+    atlas, aux = SMOKE.packed_edge_case(max_w, max_w)
+    before = packed_gather.launches
+    row = SMOKE.check_packed(torch.from_numpy(atlas).to(cuda_device),
+                             torch.from_numpy(aux).to(cuda_device), max_w, dtype,
+                             uint8_route=False)
+    assert packed_gather.launches == before + 1
+    assert row['bitwise_equal'], row
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('bad', ['buf_dtype', 'grid_device', 'meta_strided', 'out_dtype'])
 def test_extract_wrappers_raise(cuda_device, bad):
     from kraken_tpu_torch.ops.extract import extract_batch, packed_gather
@@ -1514,8 +1532,10 @@ def test_input_routes_on_the_card_equal_the_cpu(cuda_device, route):
 def test_segmask_kernels_match_plain(cuda_device):
     """maxpool20, pack_masks and quantize_u8 against their plain versions,
     bit for bit, at chip_smoke.py's phase-26 cases (maps under 10 px,
-    widths 1 to 9 and 354, ties at 0.5 and ±0.2, the exact halves), the
-    full-size shapes cut to 180 rows; one launch a call."""
+    widths 1 to 9 and 354, ties at 0.5 and ±0.2, the exact halves; the max
+    filter's sides of 19-41 and of its tile ±1, NaN and -inf, its map of
+    signed-zero ties as values), the full-size shapes cut to 180 rows; one
+    launch a call."""
     from kraken_tpu_torch.ops.segmask import maxpool20, pack_masks, quantize_u8
     full = SMOKE.SEGMASK_FULL
     SMOKE.SEGMASK_FULL = (1, 10, 180, 1245)
