@@ -23,8 +23,10 @@ reading-order model into a segmentation model's file), ``compile`` (an
 Arrow dataset; needs ``pyarrow``, and ``lxml`` for XML input), ``test`` (a
 recognition model's accuracy report; ``-f binary`` needs ``pyarrow``,
 ``-f xml`` ``lxml``) and ``segtest`` (a segmentation model's metrics;
-needs ``lxml``). ``publish`` talks to the model
-repository over the network and is not ported, by decision.
+needs ``lxml``). ``publish`` uploads a model and its metadata card to the
+model repository through the optional ``htrmopo`` package; it loads the
+model on the host to check it, reads no device, and exits 1 with the
+repository's message when ``htrmopo`` is missing or the upload fails.
 """
 import logging
 import warnings
@@ -93,8 +95,8 @@ def cli(verbose, seed, device, precision, workers, threads):
     log.set_logger(logger, level=30 - min(10 * verbose, 20))
 
 
-from kraken_tpu_torch.ketos import (dataset, pretrain, recognition, ro, segmentation,  # noqa: E402
-                                    weights)
+from kraken_tpu_torch.ketos import (dataset, pretrain, recognition, repo, ro,  # noqa: E402
+                                    segmentation, weights)
 
 cli.add_command(recognition.train)
 cli.add_command(recognition.test)
@@ -105,6 +107,7 @@ cli.add_command(ro.roadd)
 cli.add_command(dataset.compile)
 cli.add_command(weights.convert)
 cli.add_command(pretrain.pretrain)
+cli.add_command(repo.publish)
 
 
 if __name__ == '__main__':

@@ -19,8 +19,11 @@ heatmap download (``input_transfer='uint8'``, ``heatmap_precision=
 'auto'``), and ``segment --device-vectorize`` carves a page's seams in one
 launch on the card. ``segment --devices N`` and ``ocr --devices N`` shard
 page and line batches over N cards in one process (``cuda:0`` to
-``cuda:N-1``; N CPU shards with ``--device cpu``). Not yet ported: the
-model repository commands (``list``, ``get``, ``show`` of a remote model).
+``cuda:N-1``; N CPU shards with ``--device cpu``). ``show`` prints a local
+model file's metadata or fetches a record of the model repository;
+``list`` and ``get`` list and download its models. The three repository
+paths go through the optional ``htrmopo`` package (``repo.py``) and exit 1
+with its message when it is missing.
 """
 import dataclasses
 import logging
@@ -590,17 +593,28 @@ def ocr(ctx, model, batch_size, pad, temperature, num_line_workers, devices, reo
     return partial(recognizer, task_model, no_segmentation, config, linetype)
 
 
+# ---------------------------------------------------------- repo commands
 @cli.command('show')
 @click.pass_context
+@click.option('-V', '--metadata-version', default='highest',
+              help='Version of metadata to fetch if multiple exist in repository.')
 @click.argument('model_id')
-def show(ctx, model_id):
+def show(ctx, metadata_version, model_id):
     """
-    Displays the metadata embedded in a local model file (the model
-    repository is not ported).
+    Retrieves model metadata from the repository, or, when the argument is
+    a local model file, displays its embedded metadata directly.
     """
     if not os.path.isfile(model_id):
-        raise click.UsageError(f'{model_id} is not a local model file; kraken_tpu_torch '
-                               'does not query the model repository.')
+        from kraken_tpu_torch import repo
+        from kraken_tpu_torch.exceptions import KrakenRepoException
+        try:
+            desc = repo.get_description(model_id,
+                                        version=metadata_version if metadata_version != 'highest' else None)
+        except KrakenRepoException as e:
+            message(str(e), fg='red')
+            ctx.exit(1)
+        _render_remote_description(desc)
+        return
     from kraken_tpu_torch.models import load_models
     from kraken_tpu_torch.lib.util import make_printable
     for m in load_models(model_id):
@@ -625,6 +639,145 @@ def show(ctx, model_id):
             message(f'metrics (epoch {last[0]}): ' +
                     ' '.join(f'{k}={v:.4f}' for k, v in last[1].items()
                              if isinstance(v, (int, float))))
+
+
+def _render_remote_description(desc: dict) -> None:
+    """
+    Renders a remote metadata record as the reference does
+    (kraken/kraken.py:651-724): a rich key/value table titled with the
+    record summary, script codes resolved to ISO 15924 names, language
+    codes to ISO 639-3 names, creators with ORCID/affiliation, metrics
+    formatted per line; v0 records show the alphabet split into printable
+    and non-printable characters (the latter, a space among them, by
+    name), v1 records the dataset/base-model/software fields with a
+    Markdown description.
+    """
+    from rich.console import Console, Group
+    from rich.markdown import Markdown
+    from rich.table import Table
+
+    from kraken_tpu_torch.lib.iso_names import iso15924_to_name, iso639_3_to_name
+    from kraken_tpu_torch.lib.util import is_printable, make_printable
+
+    def _creators(creators):
+        out = []
+        for creator in creators or []:
+            if not isinstance(creator, dict):
+                out.append(str(creator))
+                continue
+            text = creator.get('name', '')
+            if creator.get('orcid'):
+                text += f' ({creator["orcid"]})'
+            if creator.get('affiliation'):
+                text += f' ({creator["affiliation"]})'
+            out.append(text)
+        return out
+
+    def _metrics(metrics):
+        return [f'{k}: {v:.2f}' for k, v in (metrics or {}).items()]
+
+    pub = desc.get('publication_date')
+    pub = pub.isoformat() if hasattr(pub, 'isoformat') else str(pub or '')
+    version = desc.get('version') or ('v1' if 'language' in desc else 'v0')
+
+    table = Table(title=desc.get('summary', ''), show_header=False)
+    table.add_column('key', justify='left', no_wrap=True)
+    table.add_column('value', justify='left', no_wrap=False)
+    table.add_row('DOI', desc.get('doi', ''))
+    table.add_row('concept DOI', desc.get('concept_doi', ''))
+    table.add_row('publication date', pub)
+    table.add_row('model type', Group(*(desc.get('model_type') or [])))
+    if version == 'v0':
+        chars, combining = [], []
+        for char in sorted(desc.get('graphemes') or []):
+            (chars if is_printable(char) else combining).append(make_printable(char))
+        table.add_row('script', Group(*[iso15924_to_name(s)
+                                        for s in desc.get('script') or []]))
+        table.add_row('alphabet', Group(' '.join(chars), ', '.join(combining)))
+        table.add_row('keywords', Group(*(desc.get('keywords') or [])))
+        table.add_row('metrics', Group(*_metrics(desc.get('metrics'))))
+        table.add_row('license', desc.get('license', ''))
+        table.add_row('creators', Group(*_creators(desc.get('creators'))))
+        table.add_row('description', desc.get('description', ''))
+    else:
+        table.add_row('language', Group(*[iso639_3_to_name(lang)
+                                          for lang in desc.get('language') or []]))
+        table.add_row('script', Group(*[iso15924_to_name(s)
+                                        for s in desc.get('script') or []]))
+        table.add_row('keywords', Group(*(desc.get('keywords') or [])))
+        table.add_row('datasets', Group(*(desc.get('datasets') or [])))
+        table.add_row('metrics', Group(*_metrics(desc.get('metrics'))))
+        table.add_row('base model', Group(*(desc.get('base_model') or [])))
+        table.add_row('software', desc.get('software_name', ''))
+        table.add_row('software_hints', Group(*(desc.get('software_hints') or [])))
+        table.add_row('license', desc.get('license', ''))
+        table.add_row('creators', Group(*_creators(desc.get('creators'))))
+        table.add_row('description', Markdown(desc.get('description') or ''))
+    Console().print(table)
+
+
+@cli.command('list')
+@click.option('--all', 'model_type', flag_value='all', default=True)
+@click.option('--recognition', 'model_type', flag_value='recognition')
+@click.option('--segmentation', 'model_type', flag_value='segmentation')
+@click.option('--reading-order', 'model_type', flag_value='reading_order')
+@click.option('-l', '--language', default=None, multiple=True)
+@click.option('-s', '--script', default=None, multiple=True)
+@click.option('-k', '--keyword', default=None, multiple=True)
+@click.pass_context
+def list_models(ctx, model_type, language, script, keyword):
+    """
+    Lists models in the repository.
+    """
+    from kraken_tpu_torch import repo
+    from kraken_tpu_torch.exceptions import KrakenRepoException
+    try:
+        listing = repo.get_listing_versions(model_type=model_type,
+                                            language=language,
+                                            script=script,
+                                            keyword=keyword)
+    except KrakenRepoException as e:
+        message(str(e), fg='red')
+        ctx.exit(1)
+    # reference rendering (kraken/kraken.py:774-788): one row per concept
+    # DOI with a tree of its deposits and grouped summary/type/keywords
+    from rich.console import Console, Group
+    from rich.table import Table
+    from rich.tree import Tree
+
+    table = Table(show_header=True)
+    table.add_column('DOI', justify='left', no_wrap=True)
+    table.add_column('summary', justify='left', no_wrap=False)
+    table.add_column('model type', justify='left', no_wrap=False)
+    table.add_column('keywords', justify='left', no_wrap=False)
+    for concept_id, versions in listing.items():
+        tree = Tree(concept_id)
+        for v in versions:
+            tree.add(v.get('doi', ''))
+        table.add_row(tree,
+                      Group(*[''] + [v.get('summary', '') for v in versions]),
+                      Group(*[''] + ['; '.join(v.get('model_type') or [])
+                                     for v in versions]),
+                      Group(*[''] + ['; '.join(v.get('keywords') or [])
+                                     for v in versions]))
+    Console().print(table)
+
+
+@cli.command('get')
+@click.pass_context
+@click.argument('model_id')
+def get(ctx, model_id):
+    """
+    Retrieves a model from the repository.
+    """
+    from kraken_tpu_torch import repo
+    from kraken_tpu_torch.exceptions import KrakenRepoException
+    try:
+        path = repo.get_model(model_id)
+    except KrakenRepoException as e:
+        message(str(e), fg='red')
+        ctx.exit(1)
+    message(f'Model dir: {path}')
 
 
 if __name__ == '__main__':

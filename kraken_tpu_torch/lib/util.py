@@ -73,27 +73,28 @@ def is_bitonal(im: Union['Image.Image', np.ndarray]) -> bool:
 
 def is_printable(char: str) -> bool:
     """
-    True when a code point renders on its own: control, combining-mark, and
-    non-space separator characters (which `kraken show` lists by Unicode
-    name instead) are not printable. Reference: kraken/lib/util.py:57.
+    True when a code point renders on its own: control, combining-mark and
+    separator characters (which `kraken show` lists by Unicode name
+    instead) are not printable. Reference: kraken/lib/util.py:57. The space
+    is a separator too, as upstream has it: the JAX package calls it
+    printable, so its `kraken show` lists a space grapheme as a blank.
     """
     if not char:
         return False
-    if char == ' ':
-        return True
     return unicodedata.category(char)[0] not in ('C', 'M', 'Z')
 
 
 def make_printable(char: str) -> str:
     """
-    Returns a printable representation of a code point: control and combining
-    characters are replaced by their Unicode names.
+    Returns a printable representation of a code point: control, combining
+    and separator characters are replaced by their Unicode names (``' '``
+    by ``'SPACE'``).
     """
     if not char:
         return ''
     if len(char) > 1:
         return ''.join(make_printable(c) for c in char)
-    if unicodedata.category(char)[0] in ('C', 'M', 'Z') and char != ' ':
+    if not is_printable(char):
         try:
             return unicodedata.name(char)
         except ValueError:

@@ -3,7 +3,9 @@ The port's ``ketos`` (kraken_tpu_torch.ketos) and the evaluation halves
 of its training modules (kraken_tpu_torch.train) against the JAX package's
 on the CPU (``-d cpu``; the port's default device is the card):
 
-- ``ketos test``: the report is byte for byte the JAX CLI's for
+- ``ketos test``: the report is byte for byte the JAX CLI's (but that a
+  confusion row names a space grapheme ``SPACE`` where the JAX package
+  prints a blank, ROADMAP.md §3) for
   ``merge_codec_nfd.mlmodel`` on ``base.arrow`` (``-f binary``) and on the
   ``merge_tests`` path files. With ``overfit_bl.safetensors`` on the
   fixture PageXML (``-f xml``) the two forwards sum in other orders, so a
@@ -33,6 +35,7 @@ on the CPU (``-d cpu``; the port's default device is the card):
 """
 from tests.test_torch_threads import subprocess_env  # first: the thread share under xdist
 import json
+import re
 from pathlib import Path
 
 import numpy as np
@@ -69,13 +72,21 @@ def jax_cli(args: list):
     return result
 
 
+def space_named(report: str) -> str:
+    """The JAX package's ``ketos test`` report as the port writes it: a
+    confusion row names a space grapheme ``SPACE`` where the JAX package
+    prints a blank (ROADMAP.md §3); every other character stays."""
+    head, sep, rows = report.partition('Errors\tCorrect-Generated\n')
+    return head + sep + re.sub(r'(?<=\{ ) (?= \})', 'SPACE', rows)
+
+
 def ok(result):
     assert result.exit_code == 0, (result.output, result.exception)
     return result
 
 
 @pytest.mark.parametrize('command', [[], ['test'], ['segtest'], ['convert'], ['roadd'],
-                                     ['compile']])
+                                     ['compile'], ['publish']])
 def test_help(command):
     assert 'Usage' in ok(port_cli(command + ['--help'])).output
 
@@ -83,7 +94,7 @@ def test_help(command):
 def test_group_offers_the_commands():
     from kraken_tpu_torch.ketos import cli
     assert set(cli.commands) == {'test', 'segtest', 'convert', 'roadd', 'compile',
-                                 'train', 'segtrain', 'rotrain', 'pretrain'}
+                                 'train', 'segtrain', 'rotrain', 'pretrain', 'publish'}
 
 
 @pytest.mark.parametrize('command, item', [('pretrain', '11')])
@@ -159,7 +170,8 @@ def test_report_equals_jax(inputs):
     args = ['test', '-m', MERGE_MODEL, *inputs]
     ours = ok(port_cli(['-d', 'cpu'] + args)).output
     assert ours.startswith(f'=== report {MERGE_MODEL} ===') and 'Character Accuracy' in ours
-    assert ours == jax_cli(['-d', 'cpu'] + args).output
+    assert '{ SPACE }' in ours
+    assert ours == space_named(jax_cli(['-d', 'cpu'] + args).output)
 
 
 def decoded_lines(package: str, model_path, files, format_type):
@@ -226,7 +238,9 @@ def test_xml_lines_equal_jax():
 
 def test_xml_report_equals_jax():
     args = ['test', '-f', 'xml', '-m', RESOURCES / 'overfit_bl.safetensors', PAGE_XML]
-    assert ok(port_cli(['-d', 'cpu'] + args)).output == jax_cli(['-d', 'cpu'] + args).output
+    ours = ok(port_cli(['-d', 'cpu'] + args)).output
+    assert '{ SPACE }' in ours
+    assert ours == space_named(jax_cli(['-d', 'cpu'] + args).output)
 
 
 @pytest.fixture(scope='module')
