@@ -49,7 +49,31 @@
 //    np.unpackbits(axis=-1) reverses). The comparisons are in fp32 against
 //    the fp32 constants (the JAX constants are weakly typed, so XLA rounds
 //    them to fp32 too), the difference rounded on its own (no FMA can
-//    occur). A thread an output byte.
+//    occur). Any number of region channels: their indices are an int32
+//    table in device memory.
+//
+//    Design: the planes are independent but for the two separator planes,
+//    which share their inputs; so the grid's y axis is a task (a region
+//    plane, the separator pair, a ridge plane) and its x axis the tiles of
+//    a map, 8 runs of 32 pixels of 2 rows (a 1 KB span of each fp32 row):
+//    a warp a tile, a lane a pixel of each run, its 16 loads unconditional
+//    (a lane past W reads its row's last pixel, a row past H the last row),
+//    so they issue back to back and wait once, and the blocks in flight
+//    stream one or two maps at a time. For each run the warp makes one
+//    coalesced 128-byte load (32 bytes for a ridge mask) and one
+//    __ballot_sync of the compare; lane 4 q + j takes run q's ballot,
+//    __brev puts the run's first pixel in the top bit and
+//    __byte_perm(.., 0x0123) swaps the bytes into memory order, and the lane
+//    stores byte j of it: one store of 32 contiguous bytes a row (an output
+//    row is ceil(W/8) bytes, so a run's 4 bytes start on a word only where
+//    the row allows; bytes take every offset). Lanes past W vote 0, which
+//    makes the pad bits. The separator task reads both filtered maps once a
+//    pixel and makes both planes from that one read, with two ballots.
+//    The warp's task and page come from the grid, its rows and runs from
+//    one 32-bit division a warp; offsets within a map are 32-bit, a
+//    plane's base 64-bit (no 64-bit division: the grid-stride loop of a
+//    thread a byte paid three 64-bit div/mod pairs a byte). A region
+//    task's channel is one load from the int32 table.
 //
 // 3. quantize_u8_kernel: heatmap_precision='uint8', round(p * 255) to
 //    uint8, half to even (rintf in the default rounding mode, as jnp.round
@@ -76,13 +100,12 @@ constexpr int kPitch = kPoolThreads + 1;          // staged row pitch: odd, rows
 constexpr int kStripRows = kStrip + kWin - 1;     // input rows of a tile (39)
 static_assert(kPoolThreads % kWin == 0 && kStrip * kSegs == kPoolThreads,
               "a horizontal segment a thread");
-constexpr int kPackThreads = 256;
+constexpr int kPackWarps = 4;                     // a pack block: warps, a tile each
+constexpr int kPackThreads = kPackWarps * 32;
+constexpr int kPackRuns = 8;                      // a tile: 8 runs of 32 pixels of a row...
+constexpr int kPackRows = 2;                      // ... in 2 rows
+static_assert(4 * kPackRuns <= 32, "a lane an output byte of a tile's row");
 constexpr int kQuantThreads = 256;
-constexpr int kMaxRegions = 64;
-
-struct Regions {
-  int c[kMaxRegions];
-};
 
 // np.pad(mode='symmetric') index: periodic over 2n, the second half mirrored.
 __device__ __forceinline__ int reflect(int i, int n) {
@@ -177,41 +200,107 @@ __global__ void __launch_bounds__(kPoolThreads)
   }
 }
 
+// A row of a warp's tile: lane 4 q + j takes the ballot of run q (bit i =
+// pixel i of the run) and stores byte j of it at `dst` where `st`:
+// __brev puts the run's first pixel in the top bit, __byte_perm(.., 0x0123)
+// swaps the bytes into memory order.
+__device__ __forceinline__ void store_row(uint8_t* __restrict__ dst, bool st, int lane,
+                                          const unsigned (&bits)[kPackRuns]) {
+  const int q = lane >> 2;
+  unsigned b = bits[0];
+#pragma unroll
+  for (int k = 1; k < kPackRuns; ++k) b = q == k ? bits[k] : b;
+  const unsigned word = __byte_perm(__brev(b), 0, 0x0123);  // byte j: output byte j of the run
+  if (st) *dst = (uint8_t)(word >> (8 * (lane & 3)));
+}
+
+// The tile's pixels: `row[i]` the offset of its row i in a map (a row past
+// H is the last row again), `col[q]` lane's pixel of run q in a row (a lane
+// past W takes the row's last pixel); loads unconditional, so all of them
+// issue back to back and wait once.
+template <typename T>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src, const int (&row)[kPackRows],
+                                          const int (&col)[kPackRuns],
+                                          T (&v)[kPackRows][kPackRuns]) {
+#pragma unroll
+  for (int i = 0; i < kPackRows; ++i) {
+#pragma unroll
+    for (int q = 0; q < kPackRuns; ++q) v[i][q] = __ldg(src + row[i] + col[q]);
+  }
+}
+
+// grid: (tiles of a map, tasks, pages). Task k < nr is region plane k, task
+// nr the two separator planes, task nr + 1 + j ridge plane nr + 2 + j.
 __global__ void __launch_bounds__(kPackThreads)
-    pack_masks_kernel(const float* __restrict__ probs, Regions regions, int nr, int C,
-                      const float* __restrict__ filt, const uint8_t* __restrict__ ridge, int nb,
-                      uint8_t* __restrict__ out, int N, int H, int W, int W8) {
-  const int K = nr + 2 + nb;
-  const long long total = (long long)N * K * H * W8;
-  const long long hw = (long long)H * W;
-  for (long long i = (long long)blockIdx.x * kPackThreads + threadIdx.x; i < total;
-       i += (long long)gridDim.x * kPackThreads) {
-    const int xb = (int)(i % W8);
-    long long t = i / W8;
-    const int yy = (int)(t % H);
-    t /= H;
-    const int k = (int)(t % K);
-    const int n = (int)(t / K);
-    const int xs = xb * 8;
-    const int cnt = W - xs < 8 ? W - xs : 8;
-    const long long pix = (long long)yy * W + xs;
-    unsigned byte = 0;
-    if (k < nr) {
-      const float* p = probs + ((long long)n * C + regions.c[k]) * hw + pix;
-      for (int j = 0; j < cnt; ++j) byte |= (unsigned)(__ldg(p + j) > 0.5f) << (7 - j);
-    } else if (k < nr + 2) {
-      const float* a = filt + (long long)n * 2 * hw + pix;
-      const float* b = a + hw;
-      for (int j = 0; j < cnt; ++j) {
-        const float d = __fsub_rn(__ldg(a + j), __ldg(b + j));
-        const bool set = k == nr ? d > 0.2f : d < -0.2f;
-        byte |= (unsigned)set << (7 - j);
+    pack_masks_kernel(const float* __restrict__ probs, const int* __restrict__ regions, int nr,
+                      int C, const float* __restrict__ filt, const uint8_t* __restrict__ ridge,
+                      int nb, uint8_t* __restrict__ out, int H, int W, int W8, int strips,
+                      int tiles) {
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kPackWarps + (threadIdx.x >> 5);  // the warp's tile of the map
+  if (w >= tiles) return;                                      // the whole warp
+  const int task = blockIdx.y, n = blockIdx.z;
+  const int g = w / strips;                                    // the tile's rows ...
+  const int s = w - g * strips;                                // ... and its runs
+  const int y0 = g * kPackRows, x0 = s * kPackRuns * 32;
+  const int hw = H * W;
+  int row[kPackRows], col[kPackRuns];
+  bool in[kPackRuns];
+#pragma unroll
+  for (int i = 0; i < kPackRows; ++i) row[i] = min(y0 + i, H - 1) * W;
+#pragma unroll
+  for (int q = 0; q < kPackRuns; ++q) {
+    const int x = x0 + q * 32 + lane;
+    in[q] = x < W;
+    col[q] = min(x, W - 1);
+  }
+  // lane 4 q + j stores byte j of run q of each of the tile's rows
+  const int xb = s * kPackRuns * 4 + lane;
+  const bool st = lane < 4 * kPackRuns && xb < W8;
+  const size_t plane = (size_t)H * W8;
+  uint8_t* const o = out + (size_t)n * (nr + 2 + nb) * plane + (size_t)y0 * W8 + xb;
+  if (task == nr) {
+    // the separator maps, each read once: both their planes come from it
+    const float* f = filt + (size_t)n * 2 * hw;
+    float a[kPackRows][kPackRuns], b[kPackRows][kPackRuns];
+    load_tile(f, row, col, a);
+    load_tile(f + hw, row, col, b);
+#pragma unroll
+    for (int i = 0; i < kPackRows; ++i) {
+      unsigned above[kPackRuns], below[kPackRuns];
+#pragma unroll
+      for (int q = 0; q < kPackRuns; ++q) {
+        const float d = __fsub_rn(a[i][q], b[i][q]);
+        above[q] = __ballot_sync(~0u, in[q] && d > 0.2f);
+        below[q] = __ballot_sync(~0u, in[q] && d < -0.2f);
       }
-    } else {
-      const uint8_t* m = ridge + ((long long)n * nb + (k - nr - 2)) * hw + pix;
-      for (int j = 0; j < cnt; ++j) byte |= (unsigned)(__ldg(m + j) != 0) << (7 - j);
+      const bool here = st && y0 + i < H;
+      store_row(o + nr * plane + (size_t)i * W8, here, lane, above);
+      store_row(o + (nr + 1) * plane + (size_t)i * W8, here, lane, below);
     }
-    out[i] = (uint8_t)byte;
+  } else if (task < nr) {
+    const float* src = probs + ((size_t)n * C + __ldg(regions + task)) * hw;
+    float v[kPackRows][kPackRuns];
+    load_tile(src, row, col, v);
+#pragma unroll
+    for (int i = 0; i < kPackRows; ++i) {
+      unsigned bits[kPackRuns];
+#pragma unroll
+      for (int q = 0; q < kPackRuns; ++q) bits[q] = __ballot_sync(~0u, in[q] && v[i][q] > 0.5f);
+      store_row(o + task * plane + (size_t)i * W8, st && y0 + i < H, lane, bits);
+    }
+  } else {
+    const int j = task - nr - 1;
+    const uint8_t* src = ridge + ((size_t)n * nb + j) * hw;
+    uint8_t v[kPackRows][kPackRuns];
+    load_tile(src, row, col, v);
+#pragma unroll
+    for (int i = 0; i < kPackRows; ++i) {
+      unsigned bits[kPackRuns];
+#pragma unroll
+      for (int q = 0; q < kPackRuns; ++q) bits[q] = __ballot_sync(~0u, in[q] && v[i][q] != 0);
+      store_row(o + (nr + 2 + j) * plane + (size_t)i * W8, st && y0 + i < H, lane, bits);
+    }
   }
 }
 
@@ -257,28 +346,29 @@ extern "C" int maxpool20_forward(const void* x, void* y, int M, int H, int W, in
   return (int)cudaGetLastError();
 }
 
-// probs (N, C, H, W) fp32; regions: nr channel indices < C; filt (N, 2, H, W)
-// fp32; ridge (N, nb, H, W) uint8 (unused when nb == 0); out (N, nr + 2 +
-// nb, H, ceil(W / 8)) uint8. All contiguous on `device`.
-extern "C" int pack_masks_forward(const void* probs, const int* regions, int nr, int C,
+// probs (N, C, H, W) fp32; regions: nr int32 channel indices, each in
+// 0..C-1 (the caller checks), in device memory (unread when nr == 0); filt
+// (N, 2, H, W) fp32; ridge (N, nb, H, W) uint8 (unused when nb == 0); out
+// (N, nr + 2 + nb, H, ceil(W / 8)) uint8. All contiguous on `device`.
+extern "C" int pack_masks_forward(const void* probs, const void* regions, int nr, int C,
                                   const void* filt, const void* ridge, int nb, void* out, int N,
                                   int H, int W, int device, void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || nr < 0 || nr > kMaxRegions || nb < 0 || C <= 0) {
+  if (N <= 0 || N > 65535 || H <= 0 || W <= 0 || nr < 0 || nb < 0 || C <= 0
+      || (nr > 0 && regions == nullptr) || (long long)nr + 1 + nb > 65535
+      || (long long)H * W > (1LL << 31) - 1) {
     return (int)cudaErrorInvalidValue;
   }
-  Regions r = {};
-  for (int k = 0; k < nr; ++k) {
-    if (regions[k] < 0 || regions[k] >= C) return (int)cudaErrorInvalidValue;
-    r.c[k] = regions[k];
-  }
+  const int W8 = (W + 7) / 8, strips = (W + kPackRuns * 32 - 1) / (kPackRuns * 32);
+  const long long tiles = (long long)((H + kPackRows - 1) / kPackRows) * strips;
+  if (tiles > (1LL << 31) - 1 - kPackWarps) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int W8 = (W + 7) / 8;
-  const long long total = (long long)N * (nr + 2 + nb) * H * W8;
-  pack_masks_kernel<<<blocks_for(total, kPackThreads), kPackThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(probs), r, nr, C, static_cast<const float*>(filt),
-      static_cast<const uint8_t*>(ridge), nb, static_cast<uint8_t*>(out), N, H, W, W8);
+  const dim3 blocks((unsigned)((tiles + kPackWarps - 1) / kPackWarps), (unsigned)(nr + 1 + nb),
+                    (unsigned)N);
+  pack_masks_kernel<<<blocks, kPackThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(probs), static_cast<const int*>(regions), nr, C,
+      static_cast<const float*>(filt), static_cast<const uint8_t*>(ridge), nb,
+      static_cast<uint8_t*>(out), H, W, W8, strips, (int)tiles);
   return (int)cudaGetLastError();
 }
 

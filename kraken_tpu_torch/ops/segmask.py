@@ -35,13 +35,11 @@ from kraken_tpu_torch.ops.build import raw_stream
 
 __all__ = ['maxpool20', 'maxpool20_reference', 'pack_masks', 'pack_masks_reference',
            'quantize_u8', 'quantize_u8_reference', 'packbits_reference', 'reflect_index',
-           'probe_link_mbps', 'WINDOW', 'BEFORE', 'MAX_REGIONS']
+           'probe_link_mbps', 'WINDOW', 'BEFORE']
 
 WINDOW = 20
 # scipy's origin-0 anchor for an even size: 10 pixels before (9 after)
 BEFORE = 10
-# the most region channels the packing kernel takes (csrc/segmask.cu)
-MAX_REGIONS = 64
 
 _COUNT_LOCK = threading.Lock()
 
@@ -139,7 +137,7 @@ def _kernels():
     pool.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     pool.restype = ctypes.c_int
     pack = lib.pack_masks_forward
-    pack.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+    pack.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     pack.restype = ctypes.c_int
@@ -195,6 +193,15 @@ def maxpool20(x: torch.Tensor) -> torch.Tensor:
 maxpool20.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _region_table(regions: tuple, device: torch.device) -> torch.Tensor:
+    """The region channels as an int32 tensor on `device`, where the packing
+    kernel reads them: made once a (channels, device) pair and kept, so a
+    page's call uploads nothing (the copy from the host returns when it is
+    done, so a kernel on any stream may read it)."""
+    return torch.tensor(regions, dtype=torch.int32, device=device)
+
+
 def pack_masks(probs: torch.Tensor, regions: Sequence[int], filt: torch.Tensor,
                ridge: torch.Tensor) -> torch.Tensor:
     """
@@ -204,9 +211,10 @@ def pack_masks(probs: torch.Tensor, regions: Sequence[int], filt: torch.Tensor,
     On CPU tensors this is the plain version. On CUDA tensors it launches
     the kernel of ``csrc/segmask.cu`` on the current stream and adds one to
     ``pack_masks.launches``; it raises on a type, shape, layout or device
-    the kernel does not take and when the launch is refused.
+    the kernel does not take and when the launch is refused. Any number of
+    region channels, each in ``0..C-1``.
     """
-    regions = [int(c) for c in regions]
+    regions = tuple(int(c) for c in regions)
     if probs.dim() != 4 or filt.dim() != 4 or ridge.dim() != 4:
         raise ValueError('pack_masks: probs, filt and ridge must be 4-d')
     N, C, H, W = probs.shape
@@ -215,9 +223,9 @@ def pack_masks(probs: torch.Tensor, regions: Sequence[int], filt: torch.Tensor,
         raise ValueError(f'pack_masks: probs {tuple(probs.shape)}, filt {tuple(filt.shape)} and '
                          f'ridge {tuple(ridge.shape)} do not fit (N, C, H, W), (N, 2, H, W), '
                          f'(N, nb, H, W)')
-    if len(regions) > MAX_REGIONS or any(not 0 <= c < C for c in regions):
-        raise ValueError(f'pack_masks: region channels {regions} (at most {MAX_REGIONS}) must '
-                         f'lie in 0..{C - 1}')
+    bad = [c for c in regions if not 0 <= c < C]
+    if bad:
+        raise ValueError(f'pack_masks: region channels {bad} do not lie in 0..{C - 1}')
     device = _device('pack_masks', probs)
     if device.type == 'cpu':
         if filt.device != device or ridge.device != device:
@@ -228,7 +236,7 @@ def pack_masks(probs: torch.Tensor, regions: Sequence[int], filt: torch.Tensor,
     nb = ridge.shape[1]
     out = torch.empty((N, len(regions) + 2 + nb, H, -(-W // 8)), dtype=torch.uint8,
                       device=device)
-    chans = (ctypes.c_int * max(len(regions), 1))(*regions)
+    chans = _region_table(regions, device).data_ptr() if regions else None
     err = _kernels()[1](probs.data_ptr(), chans, len(regions), C, filt.data_ptr(),
                         ridge.data_ptr(), nb, out.data_ptr(), N, H, W, device.index,
                         raw_stream(device.index))

@@ -112,6 +112,42 @@ def test_pack_masks_equals_the_jax_packbits_tail(shape):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize('nr', [66, 70])
+def test_pack_masks_takes_any_number_of_region_channels(nr):
+    """A model with more than 64 region classes: the JAX packbits tail
+    packs every one of them, and so does the port (it refused more than 64
+    before)."""
+    from kraken_tpu_torch.ops.segmask import maxpool20, pack_masks
+    shape = (2, nr + 2, 23, 45)
+    probs = rand_maps(shape, nr)
+    probs[:, :, ::3, ::2] = 0.5
+    ridge = rand_maps((2, 4) + shape[2:], nr + 1) > 0.5
+    regions = tuple(range(2, nr + 2))
+    want = _jax_packbits_tail(probs, regions, 0, 1, ridge)
+    t = torch.from_numpy(probs)
+    filt = maxpool20(t[:, [0, 1]].reshape(-1, *shape[2:])).reshape(2, 2, *shape[2:])
+    got = pack_masks(t, regions, filt, torch.from_numpy(ridge.astype(np.uint8)))
+    assert got.shape == (2, nr + 2 + 4, 23, 6)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize('bad', [-1, 72, 1000])
+def test_pack_masks_checks_each_channel_not_their_number(bad):
+    """70 region channels of 72, in any order and repeated, are taken; one
+    outside 0..71 among them raises and names it."""
+    from kraken_tpu_torch.ops.segmask import pack_masks, pack_masks_reference
+    probs = torch.from_numpy(rand_maps((1, 72, 5, 9), 6))
+    filt = torch.from_numpy(rand_maps((1, 2, 5, 9), 7))
+    ridge = torch.zeros((1, 1, 5, 9), dtype=torch.uint8)
+    regions = [71, 3, 3] + list(range(4, 71))
+    assert len(regions) == 70
+    got = pack_masks(probs, regions, filt, ridge)
+    assert got.shape == (1, 73, 5, 2)
+    assert torch.equal(got, pack_masks_reference(probs, regions, filt, ridge))
+    with pytest.raises(ValueError, match=rf'region channels \[{bad}\] do not lie in 0\.\.71'):
+        pack_masks(probs, regions[:-1] + [bad], filt, ridge)
+
+
 def test_quantize_u8_equals_jax_at_the_exact_halves():
     from kraken_tpu_torch.ops.segmask import quantize_u8
     halves = ((np.arange(255) + 0.5) / 255).astype(np.float32)
